@@ -1,0 +1,103 @@
+"""Build the hand-written CUDA kernels (csrc/*.cu) and bind them.
+
+The sources compile with nvcc into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), which ctypes
+loads. The build runs at first use, into build/<hash of the sources>/
+inside this package; a later process with the same sources loads the
+library that is there. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+_lib = None
+# what `nvcc -Xptxas -v` printed for the last build in this process
+# (registers, shared memory and spills per kernel); empty when the
+# library was already built
+ptxas_log = ""
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return BUILD_DIR / h.hexdigest()[:16] / "libotpu_celt.so"
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu into the hashed build directory (if absent)."""
+    global ptxas_log
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    ptxas_log = res.stdout + res.stderr
+    os.replace(tmp, out)
+    return out
+
+
+def lib():
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(build())))
+        return _lib
+
+
+def _bind(so):
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    so.celt_fft_blocks.restype = i
+    so.celt_fft_blocks.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, p, p]
+    so.celt_comb_step.restype = i
+    so.celt_comb_step.argtypes = [p, i, i, i, p, p, p, p]
+    so.celt_deemph.restype = i
+    so.celt_deemph.argtypes = [p, ll, i, i, i, p, p, p, i, p]
+    so.otpu_cuda_error_string.restype = ctypes.c_char_p
+    so.otpu_cuda_error_string.argtypes = [i]
+    return so
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch entry returned a CUDA error code."""
+    if err != 0:
+        msg = lib().otpu_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,284 @@
+"""The CELT iMDCT core (kernel K1) and its plain torch twin.
+
+`fft_blocks(freq_T, shift, Bblk)` computes what
+esp32_opus_player_tpu/ops/celt/pallas_fft.py::fft_blocks_pallas computes:
+for each of Bblk interleaved MDCT blocks, the pre-rotation (static
+bitrev∘interleave gather + Q15 twiddles), the mixed-radix 2/3/4/5 kiss
+FFT and the post-rotation, in the transposed layout (FFT index on rows,
+streams on columns). On a CUDA tensor it launches csrc/celt_fft.cu; on a
+CPU tensor it runs `fft_blocks_ref`, the port of the XLA path it replaced
+(jax_synthesis.opus_fft_batch with imdct_prerotate/imdct_postrotate),
+written over the same static plan. Both are bit-exact to the reference
+(clt_mdct_backward src/celt.cpp:3204-3280, opus_fft_impl :2997).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from esp32_opus_player_tpu.ops.celt.synthesis import FFT_STATES
+from esp32_opus_player_tpu.ops.tables.celt_tables import (
+    fft_twiddles48000_960)
+
+from .torch_synthesis import I32, TRIG as _TRIG, const, smul
+
+_TW = np.asarray(fft_twiddles48000_960, dtype=np.int32)   # (480, 2) r, i
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(shift: int, Bblk: int):
+    """Static gather indices + twiddles for one (shift, Bblk) variant
+    (copied from pallas_fft._plan). Each stage is (p, m, fs): radix p,
+    m butterflies per group, twiddle stride fs; stage twiddle q of
+    butterfly j is _TW[q * j * fs], read so by the twin and the
+    kernel."""
+    st = FFT_STATES[shift]
+    nfft = st.nfft                      # == N4
+    N = 1920 >> shift
+    N2, N4 = N >> 1, N >> 2
+    assert N4 == nfft
+    trig_off = sum(1920 >> s for s in range(1, shift + 1))
+    sh = st.shift if st.shift > 0 else 0
+
+    rev = np.asarray(st.bitrev, dtype=np.int64)
+    inv = np.empty_like(rev)
+    inv[rev] = np.arange(N4)
+    idx = np.arange(N4)
+
+    # input gather (freq row per kernel row) and pre-rotation twiddles,
+    # both already in bitrev order (kernel row j <- pre-rotate index
+    # inv[j] of block b)
+    i1g = np.empty(Bblk * N4, dtype=np.int64)
+    i2g = np.empty(Bblk * N4, dtype=np.int64)
+    stride = Bblk
+    for b in range(Bblk):
+        i1 = b + 2 * stride * idx
+        i2 = b + stride * (N2 - 1) - 2 * stride * idx
+        i1g[b * N4:(b + 1) * N4] = i1[inv]
+        i2g[b * N4:(b + 1) * N4] = i2[inv]
+    pre = np.stack([_TRIG[trig_off + idx], _TRIG[trig_off + N4 + idx]],
+                   axis=1)[inv]                     # (N4, 2)
+    pre = np.tile(pre, (Bblk, 1)).astype(np.int32)  # (rows, 2)
+    post = np.stack([_TRIG[trig_off + idx], _TRIG[trig_off + N4 + idx]],
+                    axis=1).astype(np.int32)        # (N4, 2)
+    post = np.tile(post, (Bblk, 1))
+
+    # stage descriptors, processed lvl = L-1 .. 0
+    factors = st.factors
+    L = len(factors)
+    fstride = [1]
+    for lvl in range(L):
+        fstride.append(fstride[lvl] * factors[lvl][0])
+    stages = []
+    for lvl in range(L - 1, -1, -1):
+        p, m = factors[lvl]
+        assert (p == 2 and m == 4) or (p == 4) or (p in (3, 5) and m > 1)
+        stages.append((p, m, fstride[lvl] << sh))
+    rows = Bblk * N4
+    return dict(rows=rows, nfft=nfft, N2=N2, N4=N4, i1g=i1g, i2g=i2g,
+                pre=pre, post=post, stages=stages)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_tensors(shift: int, Bblk: int, device: torch.device):
+    """The plan's tables on `device`, built once per device."""
+    plan = _plan(shift, Bblk)
+    return dict(
+        i1g=const(plan["i1g"], device),
+        i2g=const(plan["i2g"], device),
+        pre=const(plan["pre"], device),
+        post=const(plan["post"], device),
+        tw_table=const(_TW, device),
+        stages=np.asarray(plan["stages"], dtype=np.int32).reshape(-1, 3),
+    )
+
+
+# ---------------------------------------------------------------------
+# plain torch twin (one kiss stage = one strided view of the work rows)
+# ---------------------------------------------------------------------
+
+def _cmul(ar, ai, br, bi):
+    return smul(ar, br) - smul(ai, bi), smul(ar, bi) + smul(ai, br)
+
+
+def _stage_b2(r, i_, n):
+    # kf_bfly2 (src/celt.cpp:2545): groups of 8 = (p=2, m=4) with the
+    # fixed sqrt(1/2) twiddle 23170
+    tw = 23170
+    R = r.reshape(n // 8, 8, -1)
+    I = i_.reshape(n // 8, 8, -1)
+    f0r, f0i = R[:, 0:4], I[:, 0:4]
+    f2r, f2i = R[:, 4:8], I[:, 4:8]
+    t1r = smul(f2r[:, 1:2] + f2i[:, 1:2], tw)
+    t1i = smul(f2i[:, 1:2] - f2r[:, 1:2], tw)
+    t3r = smul(f2i[:, 3:4] - f2r[:, 3:4], tw)
+    t3i = smul(-(f2i[:, 3:4] + f2r[:, 3:4]), tw)
+    tr = torch.cat([f2r[:, 0:1], t1r, f2i[:, 2:3], t3r], dim=1)
+    ti = torch.cat([f2i[:, 0:1], t1i, -f2r[:, 2:3], t3i], dim=1)
+    nr = torch.cat([f0r + tr, f0r - tr], dim=1)
+    ni = torch.cat([f0i + ti, f0i - ti], dim=1)
+    return nr.reshape(n, -1), ni.reshape(n, -1)
+
+
+def _stage_b4m1(r, i_, n):
+    R = r.reshape(n // 4, 4, -1)
+    I = i_.reshape(n // 4, 4, -1)
+    s0r = R[:, 0] - R[:, 2]
+    s0i = I[:, 0] - I[:, 2]
+    f0r = R[:, 0] + R[:, 2]
+    f0i = I[:, 0] + I[:, 2]
+    s1r = R[:, 1] + R[:, 3]
+    s1i = I[:, 1] + I[:, 3]
+    d1r = R[:, 1] - R[:, 3]
+    d1i = I[:, 1] - I[:, 3]
+    nr = torch.stack([f0r + s1r, s0r + d1i, f0r - s1r, s0r - d1i], dim=1)
+    ni = torch.stack([f0i + s1i, s0i - d1r, f0i - s1i, s0i + d1r], dim=1)
+    return nr.reshape(n, -1), ni.reshape(n, -1)
+
+
+def _twiddle(tw, q, m):
+    """Twiddle q of the stage's m butterflies: tw is (tw_table, fs)."""
+    table, fs = tw
+    w = table[torch.arange(m, device=table.device) * (q * fs)]
+    return w[:, 0].reshape(1, m, 1), w[:, 1].reshape(1, m, 1)
+
+
+def _stage_b4(r, i_, n, m, tw):
+    R = r.reshape(n // (4 * m), 4, m, -1)
+    I = i_.reshape(n // (4 * m), 4, m, -1)
+    s0r, s0i = _cmul(R[:, 1], I[:, 1], *_twiddle(tw, 1, m))
+    s1r, s1i = _cmul(R[:, 2], I[:, 2], *_twiddle(tw, 2, m))
+    s2r, s2i = _cmul(R[:, 3], I[:, 3], *_twiddle(tw, 3, m))
+    s5r = R[:, 0] - s1r
+    s5i = I[:, 0] - s1i
+    f0r = R[:, 0] + s1r
+    f0i = I[:, 0] + s1i
+    s3r = s0r + s2r
+    s3i = s0i + s2i
+    s4r = s0r - s2r
+    s4i = s0i - s2i
+    nr = torch.stack([f0r + s3r, s5r + s4i, f0r - s3r, s5r - s4i], dim=1)
+    ni = torch.stack([f0i + s3i, s5i - s4r, f0i - s3i, s5i + s4r], dim=1)
+    return nr.reshape(n, -1), ni.reshape(n, -1)
+
+
+def _stage_b3(r, i_, n, m, tw):
+    epi3i = -28378
+    R = r.reshape(n // (3 * m), 3, m, -1)
+    I = i_.reshape(n // (3 * m), 3, m, -1)
+    s1r, s1i = _cmul(R[:, 1], I[:, 1], *_twiddle(tw, 1, m))
+    s2r, s2i = _cmul(R[:, 2], I[:, 2], *_twiddle(tw, 2, m))
+    s3r = s1r + s2r
+    s3i = s1i + s2i
+    s0r = s1r - s2r
+    s0i = s1i - s2i
+    f1r = R[:, 0] - (s3r >> 1)
+    f1i = I[:, 0] - (s3i >> 1)
+    s0r = smul(s0r, epi3i)
+    s0i = smul(s0i, epi3i)
+    nr = torch.stack([R[:, 0] + s3r, f1r - s0i, f1r + s0i], dim=1)
+    ni = torch.stack([I[:, 0] + s3i, f1i + s0r, f1i - s0r], dim=1)
+    return nr.reshape(n, -1), ni.reshape(n, -1)
+
+
+def _stage_b5(r, i_, n, m, tw):
+    yar, yai = 10126, -31164
+    ybr, ybi = -26510, -19261
+    R = r.reshape(n // (5 * m), 5, m, -1)
+    I = i_.reshape(n // (5 * m), 5, m, -1)
+    s0r, s0i = R[:, 0], I[:, 0]
+    s1r, s1i = _cmul(R[:, 1], I[:, 1], *_twiddle(tw, 1, m))
+    s2r, s2i = _cmul(R[:, 2], I[:, 2], *_twiddle(tw, 2, m))
+    s3r, s3i = _cmul(R[:, 3], I[:, 3], *_twiddle(tw, 3, m))
+    s4r, s4i = _cmul(R[:, 4], I[:, 4], *_twiddle(tw, 4, m))
+    s7r, s7i = s1r + s4r, s1i + s4i
+    s10r, s10i = s1r - s4r, s1i - s4i
+    s8r, s8i = s2r + s3r, s2i + s3i
+    s9r, s9i = s2r - s3r, s2i - s3i
+    o0r = s0r + (s7r + s8r)
+    o0i = s0i + (s7i + s8i)
+    s5r = s0r + (smul(s7r, yar) + smul(s8r, ybr))
+    s5i = s0i + (smul(s7i, yar) + smul(s8i, ybr))
+    s6r = smul(s10i, yai) + smul(s9i, ybi)
+    s6i = -(smul(s10r, yai) + smul(s9r, ybi))
+    s11r = s0r + (smul(s7r, ybr) + smul(s8r, yar))
+    s11i = s0i + (smul(s7i, ybr) + smul(s8i, yar))
+    s12r = smul(s9i, yai) - smul(s10i, ybi)
+    s12i = smul(s10r, ybi) - smul(s9r, yai)
+    nr = torch.stack([o0r, s5r - s6r, s11r + s12r, s11r - s12r, s5r + s6r],
+                     dim=1)
+    ni = torch.stack([o0i, s5i - s6i, s11i + s12i, s11i - s12i, s5i + s6i],
+                     dim=1)
+    return nr.reshape(n, -1), ni.reshape(n, -1)
+
+
+def fft_blocks_ref(freq_T, shift: int, Bblk: int):
+    """Plain torch twin of K1. freq_T: (N_freq, B) int32. Returns (yr,
+    yi), each (Bblk*N4, B) int32: post-rotated FFT outputs per block
+    (block b in rows [b*N4, (b+1)*N4))."""
+    plan = _plan(shift, Bblk)
+    t = _plan_tensors(shift, Bblk, freq_T.device)
+    n = plan["rows"]
+    xp1 = freq_T.index_select(0, t["i1g"])
+    xp2 = freq_T.index_select(0, t["i2g"])
+    t0, t1 = t["pre"][:, 0:1], t["pre"][:, 1:2]
+    yr = smul(xp2, t0) + smul(xp1, t1)
+    yi = smul(xp1, t0) - smul(xp2, t1)
+    r, i_ = yi, yr          # rbuf <- yi, ibuf <- yr (prerotate swap)
+    for p, m, fs in plan["stages"]:
+        tw = (t["tw_table"], fs)
+        if p == 2:
+            r, i_ = _stage_b2(r, i_, n)
+        elif m == 1:
+            r, i_ = _stage_b4m1(r, i_, n)
+        elif p == 4:
+            r, i_ = _stage_b4(r, i_, n, m, tw)
+        elif p == 3:
+            r, i_ = _stage_b3(r, i_, n, m, tw)
+        else:
+            r, i_ = _stage_b5(r, i_, n, m, tw)
+    re, im = i_, r
+    p0, p1 = t["post"][:, 0:1], t["post"][:, 1:2]
+    return smul(re, p0) + smul(im, p1), smul(re, p1) - smul(im, p0)
+
+
+# ---------------------------------------------------------------------
+# kernel K1
+# ---------------------------------------------------------------------
+
+def fft_blocks(freq_T, shift: int, Bblk: int):
+    """K1 wrapper: (yr, yi) as fft_blocks_ref. CPU tensors take the twin;
+    CUDA tensors launch csrc/celt_fft.cu (never the twin)."""
+    if freq_T.device.type == "cpu":
+        return fft_blocks_ref(freq_T, shift, Bblk)
+    from .. import _build
+    if freq_T.device.type != "cuda":
+        raise ValueError(f"fft_blocks: unsupported device {freq_T.device}")
+    if freq_T.dtype != I32 or freq_T.dim() != 2:
+        raise ValueError("fft_blocks: freq_T must be a 2-D int32 tensor")
+    plan = _plan(shift, Bblk)
+    if freq_T.shape[0] < Bblk * plan["N2"]:
+        raise ValueError("fft_blocks: freq_T has too few rows for the plan")
+    freq_T = freq_T.contiguous()
+    B = freq_T.shape[1]
+    t = _plan_tensors(shift, Bblk, freq_T.device)
+    yr = torch.empty((plan["rows"], B), dtype=I32, device=freq_T.device)
+    yi = torch.empty_like(yr)
+    st = t["stages"]
+    with torch.cuda.device(freq_T.device):
+        err = _build.lib().celt_fft_blocks(
+            freq_T.data_ptr(), B, yr.data_ptr(), yi.data_ptr(),
+            t["i1g"].data_ptr(), t["i2g"].data_ptr(),
+            t["pre"].data_ptr(), t["post"].data_ptr(),
+            t["tw_table"].data_ptr(), plan["rows"], plan["nfft"], len(st),
+            st.ctypes.data_as(ctypes.c_void_p),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "celt_fft_blocks")
+    fft_blocks.launches += 1
+    return yr, yi
+
+
+fft_blocks.launches = 0

@@ -1,0 +1,102 @@
+"""The hand-written CUDA kernels against their plain torch twins on an
+NVIDIA card, bit for bit, at the main path's width (B = 2048 streams),
+and the port's pool on the card against tests/golden. Needs a card;
+without one every test skips. Run on the card from the repository root:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+(--noconftest: tests/conftest.py imports JAX, which this file needs
+not.)"""
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_util import DBS, OV, comb_params, t32
+
+pytestmark = pytest.mark.cuda
+
+B = 2048
+ROOT = pathlib.Path(__file__).resolve().parent
+# (shift, Bblk) of the 7 iMDCT plans
+PLANS = [(0, 1), (3, 8), (1, 1), (3, 4), (2, 1), (3, 2), (3, 1)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shift,Bblk", PLANS)
+def test_fft_kernel_matches_twin(dev, shift, Bblk):
+    from esp32_opus_player_tpu_torch.ops.celt.fft import (fft_blocks,
+                                                          fft_blocks_ref)
+    rng = np.random.default_rng(shift * 10 + Bblk)
+    freq = t32(rng.integers(-(1 << 24), 1 << 24, (960, B)), dev)
+    n = fft_blocks.launches
+    got = fft_blocks(freq, shift, Bblk)
+    assert fft_blocks.launches == n + 1
+    want = fft_blocks_ref(freq, shift, Bblk)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("N", [960, 240])
+def test_comb_kernel_matches_twin(dev, N):
+    from esp32_opus_player_tpu_torch.ops.celt.comb import (
+        comb_filter_step_T, comb_filter_step_T_ref)
+    rng = np.random.default_rng(N)
+    buf = t32(rng.integers(-(1 << 26), 1 << 26, (DBS + OV, B)), dev)
+    c1 = tuple(t32(v, dev) for v in comb_params(rng, B))
+    c2 = tuple(t32(v, dev) for v in comb_params(rng, B))
+    want = comb_filter_step_T_ref(buf.clone(), DBS - N, N, c1, c2)
+    got = comb_filter_step_T(buf, DBS - N, N, c1, c2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("CC,downsample", [(1, 1), (2, 1), (1, 2), (2, 6)])
+def test_deemph_kernel_matches_twin(dev, CC, downsample):
+    from esp32_opus_player_tpu_torch.ops.celt.deemph import (
+        deemphasis_T, deemphasis_T_ref)
+    rng = np.random.default_rng(CC * 7 + downsample)
+    dm = t32(rng.integers(-(1 << 28), 1 << 28, (CC, DBS + OV, B)), dev)
+    mem = t32(rng.integers(-(1 << 20), 1 << 20, (B, CC)), dev)
+    syn = dm[:, DBS - 960:DBS]          # a strided view, as on the path
+    got = deemphasis_T(syn, mem, downsample)
+    want = deemphasis_T_ref(syn, mem, downsample)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _golden(name):
+    return np.fromfile(ROOT / "golden" / f"{name}.pcm",
+                       dtype=np.int16).reshape(-1, 2)
+
+
+@pytest.mark.parametrize("channels,K", [(1, 3), (2, 1)])
+def test_pool_on_card_matches_golden(dev, channels, K):
+    from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
+    kind = "mono" if channels == 1 else "stereo"
+    names = [f"celt_fb_{kind}_20ms", f"celt_fb_{kind}_drums_20ms"] * 2
+    pool = StreamPool([ROOT / "fixtures" / f"{n}.opus" for n in names],
+                      channels=channels, superstep_k=K, device=dev)
+    for name, out in zip(names, pool.run()):
+        if channels == 1:
+            out = np.repeat(out, 2, axis=1)
+        gold = _golden(name)
+        n = min(len(out), len(gold))
+        assert n > 90000 and np.array_equal(out[:n], gold[:n]), name
+
+
+def test_pool_loss_card_matches_cpu(dev):
+    from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
+    src = [ROOT / "fixtures" / "celt_fb_mono_20ms.opus"] * 3
+    loss = lambda i, k: (i + k) % 7 == 0
+    outs = [StreamPool(src, superstep_k=3, device=d).run(loss=loss)
+            for d in (dev, "cpu")]
+    for a, b in zip(*outs):
+        assert np.array_equal(a, b)

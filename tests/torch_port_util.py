@@ -1,0 +1,76 @@
+"""Shared helpers of the torch-port tests: seeded int32 inputs made with
+numpy (so the JAX function and its torch port see the same values) and
+a bit-equality check. Imports neither JAX nor the JAX package, so the
+card-only tests (run without tests/conftest.py) can use it too."""
+import numpy as np
+import torch
+
+DBS, OV = 2048, 120
+
+
+def t32(a, device="cpu"):
+    """numpy -> a new int32 torch tensor on `device`. Always a copy: the
+    port updates some buffers in place, and JAX on the CPU may still be
+    reading (asynchronously) the numpy array the same inputs came from."""
+    return torch.tensor(np.asarray(a, dtype=np.int32), device=device)
+
+
+def assert_equal(got, want, what=""):
+    """Bit equality of a torch tensor (or numpy array) with a reference
+    array, naming the first differing index on failure."""
+    g = got.cpu().numpy() if isinstance(got, torch.Tensor) else \
+        np.asarray(got)
+    w = np.asarray(want)
+    assert g.shape == w.shape, f"{what}: shape {g.shape} != {w.shape}"
+    bad = np.argwhere(g.astype(np.int64) != w.astype(np.int64))
+    assert bad.size == 0, (f"{what}: {len(bad)} values differ, first at "
+                           f"{tuple(bad[0])}: {g[tuple(bad[0])]} != "
+                           f"{w[tuple(bad[0])]}")
+
+
+def comb_params(rng, B, low=15):
+    """A comb-postfilter param 6-tuple (T0, T1, g0, g1, tapset0,
+    tapset1) of (B,) int32, with the edge rows the kernel special-cases:
+    row 0 no-op (both gains 0), row 1 unchanged params, row 2 g1 = 0."""
+    T0 = rng.integers(low, 1025, B)
+    T1 = rng.integers(low, 1025, B)
+    g0 = rng.integers(0, 32768, B)
+    g1 = rng.integers(0, 32768, B)
+    ta0 = rng.integers(0, 3, B)
+    ta1 = rng.integers(0, 3, B)
+    T0[:2] = T1[:2] = low
+    if B > 2:
+        g0[0] = g1[0] = 0
+        g1[1], T1[1], ta1[1] = g0[1], T0[1], ta0[1]
+        g1[2] = 0
+    return tuple(v.astype(np.int32) for v in (T0, T1, g0, g1, ta0, ta1))
+
+
+def synth_inputs(rng, B, C, CC, LM):
+    """Random inputs of one CELT synthesis step, row layout (as
+    tests/test_synthT.py draws them)."""
+    N = 120 << LM
+    dm = rng.integers(-(1 << 20), 1 << 20, (B, CC, DBS + OV)).astype(
+        np.int32)
+    pre = rng.integers(-100000, 100000, (B, CC)).astype(np.int32)
+    X = rng.integers(-8192, 8192, (B, C, N)).astype(np.int32)
+    bandE = rng.integers(0, 1200, (B, 2, 21)).astype(np.int32)
+    start = np.zeros(B, np.int32)
+    end = np.full(B, 21, np.int32)
+    tr = rng.integers(0, 2, B).astype(bool)
+    return (dm, pre, X, bandE, start, end, comb_params(rng, B),
+            comb_params(rng, B), tr)
+
+
+def port_synth_step(dm, pre, X, bandE, start, end, c1, c2, tr, **kw):
+    """The port's transposed frame step on row-layout numpy inputs (as
+    `synth_inputs` draws them); returns row-layout numpy (pcm,
+    decode_mem, preemph)."""
+    from esp32_opus_player_tpu_torch.ops.celt.synthesis_T import (
+        celt_synth_step_dual_T)
+    pcmT, dmT, pre2 = celt_synth_step_dual_T(
+        t32(np.moveaxis(dm, 0, 2)), t32(pre), t32(np.moveaxis(X, 0, 2)),
+        t32(bandE), t32(start), t32(end), tuple(map(t32, c1)),
+        tuple(map(t32, c2)), torch.as_tensor(tr), **kw)
+    return (np.moveaxis(pcmT.numpy(), 2, 0), np.moveaxis(dmT.numpy(), 2, 0),
+            pre2.numpy())
