@@ -6,17 +6,23 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; there is no CPU path):
-1. the card: name, count, `nvidia-smi` name and power limit;
+1. the card: name, count, `nvidia-smi` name, power limit and SM clock;
 2. build the hand-written kernels from csrc/ (prints ptxas -v);
-3. each kernel against its plain torch twin on the card at the main
-   path's width (B = 2048 streams), bit for bit, and both timed: as
-   device time (one call captured in a CUDA graph, replayed) and as
-   eager stream time;
-4. the slice, through StreamPool.run(): a mono pool of 2048 streams in
+3. each kernel against its plain torch version on the card at the main
+   paths' shapes, bit for bit (tolerance 0: int32 fixed point), and both
+   timed: as device time (one call captured in a CUDA graph, replayed)
+   and as eager stream time; beside each, its bound (the least time the
+   card could take for the same work, from this run's inputs);
+4. the CELT path through StreamPool.run(): a mono pool of 2048 streams in
    K = 64 windows and a stereo pool of 1024 streams per frame, every
-   stream bit-equal to tests/golden, with every kernel's launch count
-   from that run; then a small pool with packet loss, card against CPU;
-5. one JSON line of per-kernel results, and last the line
+   stream bit-equal to tests/golden, with K1-K3's launch counts from
+   that run; then a small CELT pool with packet loss, card against CPU;
+5. the mono SILK path: a 2048-stream WB pool in K = 64 windows (one
+   device bucket of 2048 rows: kernels K7 and K6) and a 48-stream pool
+   over the NB, MB and WB fixtures in K = 3 windows (buckets of 16 rows:
+   K5 and K6), every stream bit-equal to tests/golden and the small pool
+   equal between card and CPU, with K5-K7's launch counts from that run;
+6. one JSON line of per-kernel results, and last the line
    {"ok": true, "device": {...}}.
 """
 import json
@@ -28,10 +34,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 B = 2048
 DBS, OV = 2048, 120
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+INT32_LANES = 132 * 64             # SMs x INT32 lanes per SM
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
@@ -86,20 +94,135 @@ def timings(fn, plain, reps: int) -> dict:
                                                                      3))
 
 
+def bound(nbytes: float, ops: float, sm_hz: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the int32 operations over the INT32 issue rate
+    (132 SMs x 64 lanes x SM clock)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (INT32_LANES * sm_hz) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes"
+                if t_bytes >= t_ops else "operations", bytes=nbytes,
+                int32_ops=ops)
+
+
 def report(card, what, t) -> None:
-    print(f"[{card}] {what}: bit-equal to the plain version; device time "
-          f"(CUDA graph) kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}"
-          f" ms; eager stream time kernel {t['eager_ms']:.4f} ms, plain "
-          f"{t['plain_eager_ms']:.4f} ms")
+    print(f"[{card}] {what}: bit-equal to the plain version (tolerance "
+          f"0); device time (CUDA graph) kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms; eager stream time kernel "
+          f"{t['eager_ms']:.4f} ms, plain {t['plain_eager_ms']:.4f} ms; "
+          f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} "
+          f"({t['bytes'] / 1e6:.2f} MB, {t['int32_ops'] / 1e6:.1f} M int32 "
+          f"ops)")
 
 
 def max_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
-def check_kernels(dev, card):
-    """Phase 3: every kernel against its twin at B = 2048 (bit-equal),
-    and both timed at the main path's shapes."""
+def same(got, want) -> bool:
+    import torch
+    torch.cuda.synchronize()
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# Operation counts for the bounds: int32 operations per sample (or per
+# point) of each kernel's arithmetic, read off its source; a Q15/Q16
+# product taken as a widening multiply and a shift (2), a smulwb as
+# shift, mask, two multiplies, shift and add (6).
+
+def k1_stage_ops(p: int, m: int) -> float:
+    """int32 operations per point of one kiss stage of celt_fft.cu, as
+    its body does them (a complex twiddle product is 4 products and 2
+    sums, 10):
+    - radix 2 (m = 4): twiddle cases 0-3 cost 0, 6, 1 and 7 (sums,
+      negations, two products), then 4 sums per butterfly of 2 points;
+    - radix 4, m = 1: no twiddles, 16 sums per butterfly of 4 points;
+    - radix 4: 3 twiddle products and 16 sums per 4 points;
+    - radix 3: 2 twiddle products, 2 + 2 sums, 2 shifts and 2 sums, 2
+      products and 6 sums per 3 points;
+    - radix 5: 4 twiddle products, 8 + 4 sums, 12 + 11 + 12 + 10 for
+      the rotated sums, 8 output sums per 5 points."""
+    if p == 2:
+        return ((0 + 6 + 1 + 7) / 4 + 4) / 2
+    if p == 4:
+        return 16 / 4 if m == 1 else (3 * 10 + 16) / 4
+    if p == 3:
+        return (2 * 10 + 2 + 2 + 4 + 2 * 2 + 6) / 3
+    return (4 * 10 + 8 + 4 + 12 + 11 + 12 + 10 + 8) / 5
+
+
+def k1_work(B: int, plans) -> tuple:
+    """Both LM-3 plans over one (960, B) freq: freq read once, (yr, yi)
+    written per plan. Per point: pre- and post-rotation (4 products and
+    2 sums each, 10), and each stage of the plan (k1_stage_ops)."""
+    from esp32_opus_player_tpu_torch.ops.celt.fft import _plan
+    nbytes, ops = 960 * B * 4, 0
+    for shift, Bblk in plans:
+        plan = _plan(shift, Bblk)
+        nbytes += 2 * plan["rows"] * B * 4
+        per_point = 20 + sum(k1_stage_ops(p, m)
+                             for p, m, _ in plan["stages"])
+        ops += plan["rows"] * B * per_point
+    return nbytes, ops
+
+
+def k2_work(N: int, c1, c2) -> tuple:
+    """Both comb calls of a frame, from this run's params: a region whose
+    gains are both 0 does nothing; an active row reads its N rows and
+    max(T) + 2 rows of history and writes the rows of its active
+    regions. Per sample: 3 gain products and 5 sums with the clip (13),
+    30 in the 120-sample crossfade (both parameter sets and the
+    window)."""
+    import numpy as np
+    T = [np.maximum(c[0].cpu().numpy(), c[1].cpu().numpy()) for c in (c1, c2)]
+    act = [((c[2] != 0) | (c[3] != 0)).cpu().numpy() for c in (c1, c2)]
+    any_act = act[0] | act[1]
+    Tmax = np.where(act[0] & act[1], np.maximum(T[0], T[1]),
+                    np.where(act[0], T[0], T[1]))
+    reads = np.where(any_act, N + Tmax + 2, 0).sum() + 12 * len(T[0])
+    writes = (act[0] * 120 + act[1] * (N - 120)).sum()
+    ops = (act[0] * 120 * 30 + act[1] * (N - 120) * 13).sum()
+    return float(reads + writes) * 4, float(ops)
+
+
+def k7_work(args, fs: int, nb: int, order: int) -> tuple:
+    """One decode_core frame from this run's inputs. Reads: exc, A, B,
+    the 7 parameters, sLPC, and the outBuf positions the rewhitening
+    reads (only rows that rewhiten, only the last lag + 2 positions and
+    the order before them; this frame's xq replaces outBuf from subframe
+    2 on); writes: xq and sLPC. Per sample: the 5 LTP taps (smlawb, 6
+    each) and 4 more, the LPC taps (7 each) and 8 more, the gain scaling
+    (9); per rewhitened position 3 * order + 12; per rescaled position 4;
+    16 * 4 per LPC-state gain adjustment."""
+    import numpy as np
+    (ob, _, exc, _, _, _, _, lag, voiced, rw, _, match) = [
+        np.asarray(a) for a in args]
+    Bn = exc.shape[0]
+    subfr, ltp = 5 * fs, 20 * fs
+    frame = nb * subfr
+    pos = np.arange(ltp + frame)[None, :]
+    read = np.zeros((Bn, ltp + frame), dtype=bool)
+    ops = float(Bn * frame * (5 * 6 + 4 + 7 * order + 8 + 9))
+    for k in range(nb):
+        end = ltp + k * subfr
+        first = np.maximum(end - 18 * fs - 4, end - lag[:, k] - 2)
+        span = (pos >= (first - order)[:, None]) & (pos < end)
+        if k >= 2:
+            span &= (pos < ltp) | (pos >= ltp + 2 * subfr)
+        read |= span & rw[:, k, None]
+        n_pos = end - first
+        rescale = ~rw[:, k] & voiced[:, k] & ~match[:, k]
+        ops += float((rw[:, k] * n_pos * (3 * order + 12)).sum())
+        ops += float((rescale * n_pos * 4).sum())
+        ops += float((~match[:, k]).sum() * 16 * 4)
+    nbytes = 4 * (read.sum() + Bn * (frame + 2 * order + 5 * nb + 7 * nb
+                                     + 16) + Bn * (frame + 16))
+    return float(nbytes), ops
+
+
+def check_celt_kernels(dev, card, sm_hz):
+    """Every CELT kernel against its plain version at B = 2048
+    (bit-equal), timed at the main path's shapes."""
     import numpy as np
     import torch
     from esp32_opus_player_tpu_torch.ops.celt.comb import (
@@ -121,16 +244,15 @@ def check_kernels(dev, card):
                         (3, 1)]:
         got = fft_blocks(freq, shift, Bblk)
         want = fft_blocks_ref(freq, shift, Bblk)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
-                                                             want[1])):
+        if not same(got, want):
             raise SystemExit(f"K1 plan ({shift}, {Bblk}) differs from its "
-                             f"twin: {max_err(got[0], want[0])}")
+                             f"plain version: {max_err(got[0], want[0])}")
         err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
     both = [(0, 1), (3, 8)]
     res["K1"] = dict(max_abs_err=err, **timings(
         lambda: [fft_blocks(freq, s, b) for s, b in both],
-        lambda: [fft_blocks_ref(freq, s, b) for s, b in both], 20))
+        lambda: [fft_blocks_ref(freq, s, b) for s, b in both], 20),
+        **bound(*k1_work(B, both), sm_hz))
     report(card, f"K1 fft_blocks, all 7 plans; timed: both LM-3 plans, "
            f"B={B}", res["K1"])
 
@@ -147,13 +269,14 @@ def check_kernels(dev, card):
     buf = t32(rng.integers(-(1 << 26), 1 << 26, (DBS + OV, B)))
     want = comb_filter_step_T_ref(buf.clone(), DBS - 960, 960, c1, c2)
     got = comb_filter_step_T(buf.clone(), DBS - 960, 960, c1, c2)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise SystemExit(f"K2 differs from its twin: {max_err(got, want)}")
+    if not same([got], [want]):
+        raise SystemExit(f"K2 differs from its plain version: "
+                         f"{max_err(got, want)}")
     work = buf.clone()
     res["K2"] = dict(max_abs_err=max_err(got, want), **timings(
         lambda: comb_filter_step_T(work, DBS - 960, 960, c1, c2),
-        lambda: comb_filter_step_T_ref(work, DBS - 960, 960, c1, c2), 20))
+        lambda: comb_filter_step_T_ref(work, DBS - 960, 960, c1, c2), 20),
+        **bound(*k2_work(960, c1, c2), sm_hz))
     report(card, f"K2 comb_filter_step_T, N=960, B={B}", res["K2"])
 
     # K3: CC 1 (B = 2048, the mono pool) and CC 2 (B = 1024, stereo)
@@ -164,17 +287,124 @@ def check_kernels(dev, card):
         syn = dm[:, DBS - 960:DBS]
         got = deemphasis_T(syn, mem)
         want = deemphasis_T_ref(syn, mem)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
-                                                             want[1])):
-            raise SystemExit(f"K3 CC={CC} differs from its twin")
+        if not same(got, want):
+            raise SystemExit(f"K3 CC={CC} differs from its plain version")
         err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
-        t = timings(lambda: deemphasis_T(syn, mem),
-                    lambda: deemphasis_T_ref(syn, mem), 20)
+        # reads: the frame's rows and the memory; writes: int16 PCM and
+        # the memory. Per sample: sum, Q15 product, round, clip (8).
+        t = dict(**timings(lambda: deemphasis_T(syn, mem),
+                           lambda: deemphasis_T_ref(syn, mem), 20),
+                 **bound(CC * nb * (960 * 4 + 960 * 2 + 8),
+                         CC * nb * 960 * 8, sm_hz))
         report(card, f"K3 deemphasis_T, CC={CC}, B={nb}", t)
         if CC == 1:
             res["K3"] = t
     res["K3"]["max_abs_err"] = err
+    return res
+
+
+def check_silk_kernels(dev, card, sm_hz):
+    """K5-K7 against their plain versions on the card (bit-equal),
+    timed at the SILK path's shapes: K7 at B = 2048, WB (fs 16, nb 4,
+    order 16), with the other (fs, nb, order) sets for equality; K6 at
+    B = 2048, n = 160, with every chunk length of both SILK pools for
+    equality; K5 at the WB bucket of the 48-stream pool (B = 16, n = 80,
+    order 16), with its NB and MB buckets for equality."""
+    import numpy as np
+    import torch
+    from esp32_opus_player_tpu_torch.ops.silk.core_kernel import (
+        silk_core, silk_core_ref)
+    from esp32_opus_player_tpu_torch.ops.silk.lpc_synth import (
+        lpc_synth, lpc_synth_ref)
+    from esp32_opus_player_tpu_torch.ops.silk.torch_core import up2_hq_scan
+    from esp32_opus_player_tpu_torch.ops.silk.up2_hq import up2_hq
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_util import silk_core_inputs
+    rng = np.random.default_rng(2025)
+
+    def dev_t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    res = {}
+    # K7: (16, 4, 16) timed at B = 2048; the other sets for equality
+    err = 0
+    for fs, nb, order in [(16, 4, 16), (12, 4, 16), (8, 4, 10),
+                          (16, 2, 16)]:
+        args = silk_core_inputs(rng, B, fs, nb)
+        targs = tuple(dev_t(a) for a in args)
+        kw = dict(fs_khz=fs, nb_subfr=nb, order=order)
+        got = silk_core(*targs, **kw)
+        want = silk_core_ref(*targs, **kw)
+        if not same(got, want):
+            raise SystemExit(f"K7 ({fs}, {nb}, {order}) differs from its "
+                             f"plain version: {max_err(got[0], want[0])}")
+        err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
+        if (fs, nb, order) == (16, 4, 16):
+            res["K7"] = dict(**timings(lambda: silk_core(*targs, **kw),
+                                       lambda: silk_core_ref(*targs, **kw),
+                                       20),
+                             **bound(*k7_work(args, fs, nb, order), sm_hz))
+    res["K7"]["max_abs_err"] = err
+    report(card, f"K7 silk_core, all 4 (fs, nb, order) sets; timed: "
+           f"(16, 4, 16), B={B}", res["K7"])
+
+    # K6: every chunk length the resampler gives it (the first block of
+    # fs samples, then batchSize chunks of the rest: WB 16, 160, 144; MB
+    # 12, 120, 108; NB 8, 80, 72), at the WB pool's B = 2048 and the
+    # small pool's 16 rows; timed at one 10 ms chunk of a WB frame
+    err = 0
+    for Bn, n in ([(B, n) for n in (16, 144, 160)]
+                  + [(16, n) for n in (8, 80, 72, 12, 120, 108, 16, 160,
+                                       144)]):
+        x = dev_t(rng.integers(-32768, 32768, (Bn, n)).astype(np.int32))
+        S = dev_t(rng.integers(-(1 << 31), 1 << 31, (Bn, 6)).astype(
+            np.int32))
+        got, want = up2_hq(S, x), up2_hq_scan(S, x)
+        if not same(got, want):
+            raise SystemExit(f"K6 (B {Bn}, n {n}) differs from its plain "
+                             f"version")
+        err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
+        if (Bn, n) == (B, 160):
+            # reads: input and state; writes: 2n outputs and the state.
+            # Per input sample: 6 allpass sections (sum, smulwb, 2 sums:
+            # 9), the two outputs' rounding and clip (5 each) and the
+            # input shift (1).
+            res["K6"] = dict(**timings(lambda: up2_hq(S, x),
+                                       lambda: up2_hq_scan(S, x), 20),
+                             **bound(B * 4 * (n + 6 + 2 * n + 6),
+                                     B * n * 65, sm_hz))
+    res["K6"]["max_abs_err"] = err
+    report(card, f"K6 up2_hq, all 9 chunk lengths; timed: n=160, B={B}",
+           res["K6"])
+
+    # K5: the LPC recurrence of one subframe in each bucket of the
+    # 48-stream pool (16 rows: NB n 40 and MB n 60 at order 10, WB n 80
+    # at order 16); timed at the WB bucket's shape
+    err = 0
+    for Bs, n, order in [(16, 40, 10), (16, 60, 10), (16, 80, 16)]:
+        pres = dev_t(rng.integers(-(1 << 24), 1 << 24, (Bs, n)).astype(
+            np.int32))
+        A = dev_t(rng.integers(-(1 << 12), 1 << 12, (Bs, order)).astype(
+            np.int32))
+        s0 = dev_t(rng.integers(-(1 << 24), 1 << 24, (Bs, 16)).astype(
+            np.int32))
+        got = lpc_synth(pres, A, s0, order=order)
+        want = lpc_synth_ref(pres, A, s0, order=order)
+        if not same(got, want):
+            raise SystemExit(f"K5 (B {Bs}, n {n}, order {order}) differs "
+                             f"from its plain version")
+        err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
+    # reads: pres, A, state; writes: vs and the state. Per sample: the
+    # order taps (smulwb and sum, 7) and the shift, clip and saturating
+    # sum (8).
+    res["K5"] = dict(max_abs_err=err,
+                     **timings(lambda: lpc_synth(pres, A, s0, order=order),
+                               lambda: lpc_synth_ref(pres, A, s0,
+                                                     order=order), 20),
+                     **bound(Bs * 4 * (n + order + 16 + n + 16),
+                             Bs * n * (7 * order + 8), sm_hz))
+    report(card, f"K5 lpc_synth, 3 bucket shapes; timed: n={n}, "
+           f"order={order}, B={Bs}", res["K5"])
     return res
 
 
@@ -184,43 +414,48 @@ def golden(name):
                        dtype=np.int16).reshape(-1, 2)
 
 
-def run_pool(dev, card, channels, n, K):
-    """Phase 4: one pool through StreamPool.run(), every stream held
-    against tests/golden."""
+def fixture(name):
+    return ROOT / "tests" / "fixtures" / f"{name}.opus"
+
+
+def run_pool(dev, card, label, names, n, K, channels=1):
+    """One pool of n streams (names[i % len(names)]) through
+    StreamPool.run(), every stream held against tests/golden. Returns the
+    PCM."""
     import numpy as np
     import torch
     from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
-    kind = "mono" if channels == 1 else "stereo"
-    names = [f"celt_fb_{kind}_20ms", f"celt_fb_{kind}_drums_20ms"]
-    paths = [ROOT / "tests" / "fixtures" / f"{m}.opus" for m in names]
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    pool = StreamPool([paths[i % 2] for i in range(n)], channels=channels,
-                      superstep_k=K, device=dev)
+    pool = StreamPool([fixture(names[i % len(names)]) for i in range(n)],
+                      channels=channels, superstep_k=K, device=dev)
     t1 = time.perf_counter()
     outs = pool.run()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     frames = int(sum(len(p.jobs) for p in pool.streams))
-    gold = [golden(m) for m in names]
+    gold = {m: golden(m) for m in names}
     for i, out in enumerate(outs):
-        g = gold[i % 2]
+        g = gold[names[i % len(names)]]
         if channels == 1:
             out = np.repeat(out, 2, axis=1)
         m = min(len(out), len(g))
         if m < 90000 or not np.array_equal(out[:m], g[:m]):
-            raise SystemExit(f"{kind} pool stream {i} ({names[i % 2]}) "
-                             f"differs from tests/golden")
+            raise SystemExit(f"{label} pool stream {i} "
+                             f"({names[i % len(names)]}) differs from "
+                             f"tests/golden")
     win = pool.window_device_ms()
     dev_ms = sum(ms for _, ms in win)
+    steps = max(len(p.jobs) for p in pool.streams)
     fps = frames / (t2 - t1)
-    print(f"[{card}] {kind} pool B={n} K={K}: all {n} streams bit-equal to "
-          f"tests/golden; {frames} frames; setup {t1 - t0:.3f} s; run "
+    print(f"[{card}] {label} pool B={n} K={K}: all {n} streams bit-equal "
+          f"to tests/golden; {frames} frames; setup {t1 - t0:.3f} s; run "
           f"{t2 - t1:.3f} s wall = {fps:.1f} frames/s = "
           f"{fps * 0.02:.1f} realtime streams; device {dev_ms:.3f} ms in "
           f"{len(win)} windows = {dev_ms / len(win):.3f} ms/window, "
-          f"{dev_ms / (frames / n):.4f} ms/frame step; peak device memory "
+          f"{dev_ms / steps:.4f} ms/frame step; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    return outs
 
 
 def main() -> int:
@@ -230,12 +465,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
     from esp32_opus_player_tpu_torch.ops import _build
     from esp32_opus_player_tpu_torch.ops.celt import comb, deemph, fft
+    from esp32_opus_player_tpu_torch.ops.silk import (core_kernel,
+                                                      lpc_synth, up2_hq)
     dev = torch.device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    card = card_line()
-    print(f"device: {kind} x {count}")
+    card = nvidia_smi("name,power.limit")
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    print(f"device: {kind} x {count}; max SM clock {sm_mhz:.0f} MHz")
     print(card)
 
     t0 = time.perf_counter()
@@ -246,43 +485,70 @@ def main() -> int:
         if "Compiling entry" in line or "Used" in line:
             print("  " + line.strip())
 
-    res = check_kernels(dev, card)
+    res = check_celt_kernels(dev, card, sm_mhz * 1e6)
+    res.update(check_silk_kernels(dev, card, sm_mhz * 1e6))
 
-    wrappers = {"K1": fft.fft_blocks, "K2": comb.comb_filter_step_T,
-                "K3": deemph.deemphasis_T}
-    for w in wrappers.values():
+    # the CELT path: counts set to 0 just before, read just after
+    celt = {"K1": fft.fft_blocks, "K2": comb.comb_filter_step_T,
+            "K3": deemph.deemphasis_T}
+    for w in celt.values():
         w.launches = 0
-    run_pool(dev, card, channels=1, n=B, K=64)
-    run_pool(dev, card, channels=2, n=B // 2, K=1)
-    launches = {k: w.launches for k, w in wrappers.items()}
+    run_pool(dev, card, "CELT mono", ["celt_fb_mono_20ms",
+                                      "celt_fb_mono_drums_20ms"], B, 64)
+    run_pool(dev, card, "CELT stereo", ["celt_fb_stereo_20ms",
+                                        "celt_fb_stereo_drums_20ms"],
+             B // 2, 1, channels=2)
+    launches = {k: w.launches for k, w in celt.items()}
+
+    src = [fixture(f"celt_fb_mono{d}_20ms") for d in ("", "_drums")] * 2
+    loss = lambda i, k: (3 * i + k) % 5 == 0
+    a, b = (StreamPool(src, superstep_k=3, device=d).run(loss=loss)
+            for d in (dev, "cpu"))
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise SystemExit("lossy CELT pool: card and CPU differ")
+    print("lossy CELT pool (4 streams, K=3, every 5th packet lost): "
+          "card == CPU")
+
+    # the mono SILK path: counts set to 0 just before, read just after
+    silk = {"K5": lpc_synth.lpc_synth, "K6": up2_hq.up2_hq,
+            "K7": core_kernel.silk_core}
+    for w in silk.values():
+        w.launches = 0
+    run_pool(dev, card, "SILK WB", ["silk_wb_mono_20ms",
+                                    "silk_wb_fec_mono_20ms"], B, 64)
+    small = ["silk_nb_mono_20ms", "silk_mb_mono_20ms", "silk_wb_mono_20ms"]
+    outs = run_pool(dev, card, "SILK NB/MB/WB", small, 48, 3)
+    launches.update({k: w.launches for k, w in silk.items()})
+    cpu = StreamPool([fixture(small[i % 3]) for i in range(48)],
+                     superstep_k=3, device="cpu").run()
+    if not all(np.array_equal(x, y) for x, y in zip(outs, cpu)):
+        raise SystemExit("SILK NB/MB/WB pool: card and CPU differ")
+    print("SILK NB/MB/WB pool (48 streams, K=3): card == CPU")
+
     print(f"[{card}] main-path launches: {launches}")
     for k, v in launches.items():
         if v <= 0:
             raise SystemExit(f"{k} was never launched on the main path")
 
-    from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
-    src = [ROOT / "tests" / "fixtures" / f"celt_fb_mono{d}_20ms.opus"
-           for d in ("", "_drums")] * 2
-    loss = lambda i, k: (3 * i + k) % 5 == 0
-    a, b = (StreamPool(src, superstep_k=3, device=d).run(loss=loss)
-            for d in (dev, "cpu"))
-    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
-        raise SystemExit("lossy pool: card and CPU differ")
-    print("lossy pool (4 streams, K=3, every 5th packet lost): card == CPU")
-
+    pkg, jx = "esp32_opus_player_tpu_torch/csrc/", "esp32_opus_player_tpu/"
     meta = {
-        "K1": ("celt_fft_blocks", "esp32_opus_player_tpu_torch/csrc/"
-               "celt_fft.cu", "esp32_opus_player_tpu/ops/celt/"
-               "pallas_fft.py:311"),
-        "K2": ("celt_comb_step", "esp32_opus_player_tpu_torch/csrc/"
-               "celt_comb.cu", "esp32_opus_player_tpu/ops/celt/"
-               "pallas_comb.py:237"),
-        "K3": ("celt_deemph", "esp32_opus_player_tpu_torch/csrc/"
-               "celt_deemph.cu", "esp32_opus_player_tpu/ops/celt/"
-               "jax_synthesis_T.py:162"),
+        "K1": ("celt_fft_blocks", "celt_fft.cu",
+               "ops/celt/pallas_fft.py:311"),
+        "K2": ("celt_comb_step", "celt_comb.cu",
+               "ops/celt/pallas_comb.py:237"),
+        "K3": ("celt_deemph", "celt_deemph.cu",
+               "ops/celt/jax_synthesis_T.py:162"),
+        "K5": ("silk_lpc_synth", "silk_lpc.cu",
+               "ops/silk/pallas_core.py:96"),
+        "K6": ("silk_up2_hq", "silk_up2.cu", "ops/silk/pallas_core.py:191"),
+        "K7": ("silk_core", "silk_core.cu", "ops/silk/pallas_core.py:409"),
     }
-    kernels = [dict(name=n, route="cuda", source=s, replaces=r,
-                    launches=launches[k], **res[k])
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    # no single PyTorch call computes these int32 fixed-point recurrences
+    # (torch.fft is float and another function), so library_ms is null
+    kernels = [dict(name=n, route="cuda", source=pkg + s, replaces=jx + r,
+                    launches=launches[k], **{x: res[k][x] for x in keys},
+                    library_ms=None)
                for k, (n, s, r) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

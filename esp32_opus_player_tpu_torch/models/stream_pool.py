@@ -1,13 +1,16 @@
 """StreamPool: decode many concurrent Ogg/Opus streams with torch.
 
-Port of the uniform-CELT transposed ("T-mode") path of
-esp32_opus_player_tpu/models/stream_pool.py. Per step:
+Port of the uniform-CELT transposed ("T-mode") path and the mono SILK
+path of esp32_opus_player_tpu/models/stream_pool.py. The streams fall
+into lanes: one CELT lane over the whole pool, or one SILK lane per
+internal rate (8, 12, 16 kHz), each a device bucket of its streams in
+row order. Per step, for each lane:
 
-1. host: the batched native CELT symbol phase over every stream with a
-   packet left (esp32_opus_player_tpu/models/host_groups.py, shared with
-   the JAX package);
-2. one packed int16 staging row per stream (models/celt_pool_T.py);
-3. device: one whole-pool frame step, or with superstep_k = K one
+1. host: the batched native symbol phase over its streams with a packet
+   left (models/host_groups.py, the port's copy);
+2. one packed staging row per stream: int16 for CELT
+   (models/celt_pool_T.py), int32 for SILK (models/silk_pool.py);
+3. device: one whole-lane frame step, or with superstep_k = K one
    K-frame window run as a unit: one upload, K frame steps, one PCM
    fetch;
 4. host: the PCM is fetched `pipeline_depth` steps later (the device
@@ -15,11 +18,12 @@ esp32_opus_player_tpu/models/stream_pool.py. Per step:
    end-trim) and appended per stream.
 
 Supported: uniform 20 ms (LM 3) CELT-only streams (compat_ref=True, or
-RFC mode at fullband), channels 1 or 2, superstep_k >= 1, out_fs 48000,
-output "host". A lost packet (step(lost=...), run(loss=...)) gives
-silence and leaves the stream's state untouched: a masked pool row.
-Everything else raises NotImplementedError naming the ROADMAP.md item
-that brings it.
+RFC mode at fullband), channels 1 or 2; mono SILK-only streams with one
+20 ms frame per packet at a constant bandwidth, channels 1. Both with
+superstep_k >= 1, out_fs 48000, output "host". A lost CELT packet
+(step(lost=...), run(loss=...)) gives silence and leaves the stream's
+state untouched: a masked row. Everything else raises
+NotImplementedError naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -30,16 +34,17 @@ import pathlib
 import numpy as np
 import torch
 
-from esp32_opus_player_tpu.host import opusfile
-from esp32_opus_player_tpu.host.packet import (Mode, get_bandwidth,
-                                               get_nb_frames,
-                                               get_samples_per_frame)
-
+from ..host import opusfile
+from ..host.packet import (Mode, get_bandwidth, get_nb_channels,
+                           get_nb_frames, get_samples_per_frame)
 from ..ops.celt.torch_synthesis import (DECODE_BUFFER_SIZE, NB_EBANDS,
                                         OVERLAP)
+from . import host_groups as hg
+from . import silk_pool
 from .celt_pool_T import _CELT_HDR, celt_pool_superstep_T
 
 _FULLBAND = 1105
+_FS_OF_BW = {1101: 8, 1102: 12, 1103: 16}    # SILK-only: NB, MB, WB
 _LM = 3
 _N = 960
 
@@ -51,40 +56,181 @@ def _todo(what: str, item: str):
 
 
 class _Window:
-    """The PCM of one window of frames: a host copy (K, CC, N, n) of the
-    device output, fetched once, on first use."""
+    """The PCM of one window of a lane's frames: a host copy (K, ...) of
+    the device output, fetched once, on first use."""
 
-    __slots__ = ("pool", "host_t", "done")
+    __slots__ = ("lane", "host_t", "done")
 
-    def __init__(self, pool):
-        self.pool = pool
+    def __init__(self, lane):
+        self.lane = lane
         self.host_t = None
         self.done = None          # CUDA event: the host copy has landed
 
     def host(self) -> np.ndarray:
         if self.host_t is None:        # fetched before K frames buffered
-            self.pool._dispatch()
+            self.lane.dispatch()
         if self.done is not None:
             self.done.synchronize()
         return self.host_t.numpy()
+
+
+class _Lane:
+    """One device bucket: a host symbol group over the streams `idxs`
+    (row r is stream idxs[r]), their device state, and one staging
+    window of K frames on the host, pinned on a card so the upload is
+    asynchronous. Subclasses fill a staging frame, run a window and cut
+    a frame's PCM per stream."""
+
+    def __init__(self, pool, group, idxs, width: int, dtype):
+        self.pool = pool
+        self.group = group
+        self.idxs = np.asarray(idxs, dtype=np.int64)
+        self.n = len(self.idxs)
+        self.stg = torch.zeros((pool._ss_k, self.n, width), dtype=dtype,
+                               device="cpu", pin_memory=pool._cuda)
+        self.stg_np = self.stg.numpy()
+        self.stg_free = None      # event after the last upload out of stg
+        self.masked: list[bool] = []
+        self.win = _Window(self)
+
+    def stage(self, sel):
+        """Write this step's staging frame (rows `sel` decoded, the rest
+        inactive) and dispatch the window once it holds K frames.
+        Returns (window, frame index) of the frame."""
+        if not self.masked and self.stg_free is not None:
+            self.stg_free.synchronize()
+        win, k = self.win, len(self.masked)
+        self.fill(self.stg_np[k], sel)
+        self.masked.append(sel.size < self.n)
+        if len(self.masked) == self.pool._ss_k:
+            self.dispatch()
+        return win, k
+
+    def dispatch(self) -> None:
+        """Run the buffered frames of the window on the device."""
+        pool, win, K = self.pool, self.win, len(self.masked)
+        stgK = self.stg[:K].to(pool.device, non_blocking=True)
+        if pool._cuda:
+            self.stg_free = torch.cuda.Event()
+            self.stg_free.record()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+        pcmK = self.run(stgK, self.masked)
+        if pool._cuda:
+            t1.record()
+            pool._win_events.append((K, t0, t1))
+            win.host_t = torch.empty(pcmK.shape, dtype=pcmK.dtype,
+                                     device="cpu", pin_memory=True)
+            win.host_t.copy_(pcmK, non_blocking=True)
+            win.done = torch.cuda.Event()
+            win.done.record()
+        else:
+            win.host_t = pcmK
+        self.win = _Window(self)
+        self.masked = []
+
+
+class _CeltLane(_Lane):
+    """Uniform fullband 20 ms CELT over the whole pool, transposed state
+    (models/celt_pool_T.py)."""
+
+    def __init__(self, pool):
+        g = hg.CeltGroup(list(range(pool.n)),
+                         [s.jobs for s in pool.streams], _N, pool.channels,
+                         0, [21] * pool.n)
+        self.C = g.C
+        super().__init__(pool, g, range(pool.n),
+                         _CELT_HDR + 2 * NB_EBANDS + g.C * _N, torch.int16)
+        CC = pool.channels
+        self.state = {
+            "decode_mem": torch.zeros(
+                (CC, DECODE_BUFFER_SIZE + OVERLAP, self.n),
+                dtype=torch.int32, device=pool.device),
+            "preemph": torch.zeros((self.n, CC), dtype=torch.int32,
+                                   device=pool.device),
+        }
+
+    def fill(self, stg, sel) -> None:
+        g = self.group
+        stg[:] = 0
+        p = g.params
+        stg[sel, 2] = p[sel, 1]                         # transient
+        stg[sel, 3] = g.start[sel]
+        stg[sel, 4] = p[sel, 15]                        # end
+        stg[sel, 5:17] = p[sel, 3:15]                   # comb1, comb2
+        stg[sel, 17] = 1                                # active
+        stg[sel, _CELT_HDR:_CELT_HDR + 2 * NB_EBANDS] = g.bandE[sel]
+        stg[sel, _CELT_HDR + 2 * NB_EBANDS:] = g.X[sel]
+
+    def run(self, stgK, masked):
+        return celt_pool_superstep_T(
+            self.state["decode_mem"], self.state["preemph"], stgK, LM=_LM,
+            C=self.C, CC=self.pool.channels, masked=masked)
+
+    @staticmethod
+    def frames(frame, sel):
+        """Frame (CC, N, n) -> (len(sel), N, CC)."""
+        return frame[:, :, sel].transpose(2, 1, 0)
+
+
+class _SilkLane(_Lane):
+    """Mono SILK streams at one internal rate fs, 20 ms frames
+    (models/silk_pool.py)."""
+
+    NB = 4
+
+    def __init__(self, pool, fs: int, idxs):
+        g = hg.SilkGroup(idxs, [pool.streams[i].jobs for i in idxs], fs, 20)
+        self.fs = fs
+        self.order = 16 if fs == 16 else 10
+        self.frame = self.NB * 5 * fs
+        self.dummy = silk_pool.dummy_row(fs, self.NB)
+        super().__init__(pool, g, idxs,
+                         silk_pool.stage_width(self.frame, self.NB),
+                         torch.int32)
+        self.state = silk_pool.make_bucket(self.n, fs, pool.device)
+
+    def fill(self, stg, sel) -> None:
+        b, F = self.group.buf, self.frame
+        p = F + 32 + 5 * self.NB
+        stg[:] = self.dummy
+        stg[sel, :F] = b.exc[sel]
+        stg[sel, F:F + 32] = b.A[sel].reshape(-1, 32)
+        stg[sel, F + 32:p] = b.B[sel].reshape(-1, 5 * self.NB)
+        for j, col in enumerate((b.gains, b.inv, b.lag, b.adj)):
+            stg[sel, p + 4 * j:p + 4 * j + 4] = col[sel]
+        stg[sel, p + 16:p + 28] = b.flags[sel]    # voiced, rewhiten, match
+        stg[sel, -1] = 1                          # active
+
+    def run(self, stgK, masked):
+        return silk_pool.silk_pool_superstep(
+            self.state, stgK, fs=self.fs, nb=self.NB, order=self.order,
+            masked=masked)
+
+    @staticmethod
+    def frames(frame, sel):
+        """Frame (n, L48) -> (len(sel), L48, 1)."""
+        return frame[sel][:, :, None]
 
 
 class StreamPool:
     def __init__(self, sources, channels: int = 1, native: bool = True,
                  compat_ref: bool = True, rfc_plc: bool = False,
                  output: str = "host", out_fs: int = 48000,
-                 superstep_k: int = 1, device="cpu"):
+                 superstep_k: int = 1, device="cuda"):
         """sources: paths, bytes or parsed OggOpusStream objects (equal
         paths or bytes are parsed once).
-        device: where the decoder state lives and the frame steps run;
-        on "cuda" the steps launch the hand-written kernels K1-K3, on
-        "cpu" their plain torch twins."""
+        device: where the decoder state lives and the frame steps run.
+        On "cuda" (the default) the steps launch the hand-written
+        kernels; without a card that raises. On "cpu" every kernel's
+        plain torch version runs."""
         if channels not in (1, 2):
             raise ValueError("channels must be 1 or 2")
         if not native:
             raise _todo("the Python symbol phase (native=False)", "12")
         if rfc_plc:
-            raise _todo("CELT packet-loss concealment (rfc_plc)", "7")
+            raise _todo("packet-loss concealment (rfc_plc)", "7 and 9")
         if output != "host":
             raise _todo("device-resident output", "12")
         if out_fs != 48000:
@@ -92,6 +238,10 @@ class StreamPool:
         if int(superstep_k) < 1:
             raise ValueError("superstep_k must be >= 1")
         self.device = torch.device(device)
+        self._cuda = self.device.type == "cuda"
+        if self._cuda and not torch.cuda.is_available():
+            raise RuntimeError("StreamPool: no CUDA device; pass "
+                               "device='cpu' to decode on the CPU")
         parsed = {}
         self.streams = [self._parse(s, parsed) for s in sources]
         self.n = len(self.streams)
@@ -99,43 +249,41 @@ class StreamPool:
             raise ValueError("StreamPool needs at least one source")
         self.channels = channels
         self.compat_ref = compat_ref
-        for i, s in enumerate(self.streams):
-            self._check_source(i, s)
-
-        from esp32_opus_player_tpu.models import host_groups as hg
-        self._group = hg.CeltGroup(list(range(self.n)),
-                                   [s.jobs for s in self.streams], _N,
-                                   channels, 0, [21] * self.n)
-        self._C = self._group.C
-        self._W = _CELT_HDR + 2 * NB_EBANDS + self._C * _N
+        kinds = [self._check_source(i, s) for i, s in enumerate(self.streams)]
+        if len({k[0] for k in kinds}) > 1:
+            raise _todo("a pool that mixes CELT and SILK streams", "12")
+        self._ss_k = int(superstep_k)
         self.positions = np.zeros(self.n, dtype=np.int64)
         self.pcm_out = [[] for _ in range(self.n)]
-        self.state = {
-            "decode_mem": torch.zeros(
-                (channels, DECODE_BUFFER_SIZE + OVERLAP, self.n),
-                dtype=torch.int32, device=self.device),
-            "preemph": torch.zeros((self.n, channels), dtype=torch.int32,
-                                   device=self.device),
-        }
-        self._ss_k = int(superstep_k)
-        cuda = self.device.type == "cuda"
-        # one staging window on the host, pinned on a card so the upload
-        # is asynchronous; `_stg_free` is the event after which the last
-        # upload out of it has finished
-        self._stg = torch.zeros((self._ss_k, self.n, self._W),
-                                dtype=torch.int16, device="cpu",
-                                pin_memory=cuda)
-        self._stg_np = self._stg.numpy()
-        self._stg_free = None
-        self._masked: list[bool] = []
-        self._win = _Window(self)
+        if kinds[0][0] == "celt":
+            self._lanes = [_CeltLane(self)]
+        else:
+            by_fs = collections.defaultdict(list)
+            for i, (_, fs) in enumerate(kinds):
+                by_fs[fs].append(i)
+            self._lanes = [_SilkLane(self, fs, idxs)
+                           for fs, idxs in sorted(by_fs.items())]
+        self._silk = {i for lane in self._lanes
+                      if isinstance(lane, _SilkLane) for i in lane.idxs}
         # CUDA events around the frame steps of the latest windows
         self._win_events = collections.deque(maxlen=1024)
         # device work of step t is fetched at the end of step t+depth, so
         # the host symbol phases of the next steps overlap it; superstep
         # windows dispatch every K steps, so retirement lags K steps
         self.pipeline_depth = max(2, self._ss_k)
-        self._pending: list[dict] = []
+        self._pending: list[list] = []
+
+    @property
+    def state(self) -> dict:
+        """The CELT lane's state (decode_mem, preemph)."""
+        return self._lanes[0].state
+
+    @property
+    def silk_buckets(self) -> dict:
+        """The SILK lanes' states by internal rate (the JAX pool's
+        silk_buckets; rows are the lane's streams in index order)."""
+        return {lane.fs: lane.state for lane in self._lanes
+                if isinstance(lane, _SilkLane)}
 
     @staticmethod
     def _parse(s, parsed: dict):
@@ -150,7 +298,9 @@ class StreamPool:
             parsed[key] = opusfile.parse_stream(data)
         return parsed[key]
 
-    def _check_source(self, i: int, s) -> None:
+    def _check_source(self, i: int, s):
+        """("celt",) or ("silk", fs) for a source the port decodes;
+        raises for the rest."""
         head = s.head
         if head is not None and (head.stream_count > 1
                                  or head.channel_count > 2):
@@ -163,114 +313,81 @@ class StreamPool:
             mode = Mode.CELT_ONLY if p0 & 0x80 else (
                 Mode.HYBRID if (p0 & 0x60) == 0x60 else Mode.SILK_ONLY)
             kinds.add((mode, get_samples_per_frame(p0),
-                       get_nb_frames(j.data)))
+                       get_nb_frames(j.data), get_nb_channels(p0)))
             bws.add(int(get_bandwidth(p0)))
         if len(kinds) != 1:
             raise _todo(f"stream {i}: mode-switching sources", "12")
-        mode, spf, nfr = next(iter(kinds))
-        if mode == Mode.SILK_ONLY:
-            raise _todo(f"stream {i}: SILK",
-                        "8" if self.channels == 1 else "10")
+        mode, spf, nfr, sch = next(iter(kinds))
         if mode == Mode.HYBRID:
             raise _todo(f"stream {i}: hybrid", "11")
+        if mode == Mode.SILK_ONLY:
+            if self.channels == 2 or sch == 2:
+                raise _todo(f"stream {i}: stereo SILK", "10")
+            if spf != _N or nfr != 1:
+                raise _todo(f"stream {i}: SILK frames other than one 20 ms "
+                            f"frame per packet", "12")
+            if len(bws) != 1:
+                raise _todo(f"stream {i}: SILK bandwidth switches", "12")
+            return ("silk", _FS_OF_BW[next(iter(bws))])
         if spf != _N or nfr != 1:
             raise _todo(f"stream {i}: CELT frames other than one 20 ms "
                         f"frame per packet", "6")
         if not self.compat_ref and bws != {_FULLBAND}:
             # RFC mode codes the real end band per bandwidth
             raise _todo(f"stream {i}: RFC-mode CELT below fullband", "6")
+        return ("celt",)
 
     # ------------------------------------------------------------ steps
     def step(self, lost=None) -> bool:
         """Decode one frame of every stream with a packet left. lost:
         stream indices whose next packet was lost in transit: it is
-        consumed, its PCM is silence and the stream's state is untouched.
-        Returns False once every stream is exhausted."""
-        g = self._group
-        live = self.positions < g.table.n_packets
-        if not live.any():
+        consumed, its PCM is silence and the stream's state is untouched
+        (CELT streams; a lost SILK packet raises). Returns False once
+        every stream is exhausted."""
+        lost = set(lost or ())
+        if lost & self._silk:
+            raise _todo("SILK packet loss", "9")
+        parts = []
+        for lane in self._lanes:
+            g, idxs = lane.group, lane.idxs
+            pos = self.positions[idxs]
+            live = pos < g.table.n_packets
+            if not live.any():
+                continue
+            active = live.copy()
+            if lost:
+                active &= ~np.isin(idxs, list(lost))
+            ok = g.decode(pos, active) if active.any() else active
+            sel = np.nonzero(ok)[0]
+            rows = np.nonzero(live)[0]
+            part = dict(lane=lane, sel=sel, lost=np.nonzero(live & ~ok)[0],
+                        rows=rows, disc=g.table.disc[rows, pos[rows]],
+                        trim=g.table.trim[rows, pos[rows]], win=None, k=0)
+            self.positions[idxs[live]] += 1
+            if sel.size:
+                part["win"], part["k"] = lane.stage(sel)
+            parts.append(part)
+        if not parts:
             self._flush()
             return False
-        active = live.copy()
-        if lost:
-            active[list(lost)] = False
-        pos = self.positions
-        ok = g.decode(pos, active) if active.any() else active
-        sel = np.nonzero(ok)[0]
-        rows = np.nonzero(live)[0]
-        pend = dict(sel=sel, lost=np.nonzero(live & ~ok)[0],
-                    disc=g.table.disc[rows, pos[rows]],
-                    trim=g.table.trim[rows, pos[rows]], rows=rows,
-                    win=None, k=0)
-        self.positions[live] += 1
-        if sel.size:
-            pend["win"], pend["k"] = self._win, len(self._masked)
-            self._stage(sel)
-        self._pending.append(pend)
+        self._pending.append(parts)
         while len(self._pending) > self.pipeline_depth:
             self._route(self._pending.pop(0))
         return True
 
-    def _stage(self, sel) -> None:
-        """Write this step's staging row per stream into the window and
-        dispatch the window once it holds K frames."""
-        if not self._masked and self._stg_free is not None:
-            self._stg_free.synchronize()
-        g = self._group
-        stg = self._stg_np[len(self._masked)]
-        stg[:] = 0
-        p = g.params
-        stg[sel, 2] = p[sel, 1]                         # transient
-        stg[sel, 3] = g.start[sel]
-        stg[sel, 4] = p[sel, 15]                        # end
-        stg[sel, 5:17] = p[sel, 3:15]                   # comb1, comb2
-        stg[sel, 17] = 1                                # active
-        stg[sel, _CELT_HDR:_CELT_HDR + 2 * NB_EBANDS] = g.bandE[sel]
-        stg[sel, _CELT_HDR + 2 * NB_EBANDS:] = g.X[sel]
-        self._masked.append(sel.size < self.n)
-        if len(self._masked) == self._ss_k:
-            self._dispatch()
-
-    def _dispatch(self) -> None:
-        """Run the buffered frames of the window on the device."""
-        win, K = self._win, len(self._masked)
-        cuda = self.device.type == "cuda"
-        stgK = self._stg[:K].to(self.device, non_blocking=True)
-        if cuda:
-            self._stg_free = torch.cuda.Event()
-            self._stg_free.record()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-        pcmK = celt_pool_superstep_T(
-            self.state["decode_mem"], self.state["preemph"], stgK, LM=_LM,
-            C=self._C, CC=self.channels, masked=self._masked)
-        if cuda:
-            t1.record()
-            self._win_events.append((K, t0, t1))
-            win.host_t = torch.empty(pcmK.shape, dtype=pcmK.dtype,
-                                     device="cpu", pin_memory=True)
-            win.host_t.copy_(pcmK, non_blocking=True)
-            win.done = torch.cuda.Event()
-            win.done.record()
-        else:
-            win.host_t = pcmK
-        self._win = _Window(self)
-        self._masked = []
-
-    def _route(self, pend) -> None:
+    def _route(self, parts) -> None:
         """Trim and append one step's PCM per stream."""
-        CC = self.channels
-        meta = {int(r): (int(d), int(t)) for r, d, t in
-                zip(pend["rows"], pend["disc"], pend["trim"])}
-        if pend["sel"].size:
-            frame = pend["win"].host()[pend["k"]]       # (CC, N, n)
-            blk = frame[:, :, pend["sel"]].transpose(2, 1, 0)
-            for pcm, i in zip(blk, pend["sel"].tolist()):
-                self.pcm_out[i].append(self._trim(pcm, *meta[i]))
-        for i in pend["lost"].tolist():
-            self.pcm_out[i].append(self._trim(
-                np.zeros((_N, CC), dtype=np.int16), *meta[i]))
+        for p in parts:
+            lane, idxs = p["lane"], p["lane"].idxs
+            meta = {int(r): (int(d), int(t)) for r, d, t in
+                    zip(p["rows"], p["disc"], p["trim"])}
+            if p["sel"].size:
+                blk = lane.frames(p["win"].host()[p["k"]], p["sel"])
+                for pcm, r in zip(blk, p["sel"].tolist()):
+                    self.pcm_out[idxs[r]].append(self._trim(pcm, *meta[r]))
+            for r in p["lost"].tolist():
+                self.pcm_out[idxs[r]].append(self._trim(
+                    np.zeros((_N, self.channels), dtype=np.int16), *meta[r]))
 
     @staticmethod
     def _trim(pcm, lo: int, te: int):
@@ -279,9 +396,10 @@ class StreamPool:
         return np.ascontiguousarray(pcm[lo:max(hi, lo)])
 
     def _flush(self) -> None:
-        """Dispatch a partial window and retire every pending step."""
-        if self._masked:
-            self._dispatch()
+        """Dispatch every partial window and retire every pending step."""
+        for lane in self._lanes:
+            if lane.masked:
+                lane.dispatch()
         pends, self._pending = self._pending, []
         for p in pends:
             self._route(p)
@@ -298,7 +416,9 @@ class StreamPool:
     def run(self, loss=None):
         """Decode everything; returns a list of (n_i, channels) int16.
         loss: optional callable (stream_idx, packet_idx) -> bool marking
-        packets lost in transit."""
+        packets lost in transit (CELT pools; SILK loss raises)."""
+        if loss is not None and self._silk:
+            raise _todo("SILK packet loss", "9")
         while True:
             lost = set()
             if loss is not None:

@@ -51,25 +51,44 @@ def library_path() -> pathlib.Path:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
-    return BUILD_DIR / h.hexdigest()[:16] / "libotpu_celt.so"
+    return BUILD_DIR / h.hexdigest()[:16] / "libotpu_kernels.so"
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu into the hashed build directory (if absent)."""
+    """Compile csrc/*.cu into the hashed build directory (if absent): one
+    nvcc per source, all started together, then one link."""
     global ptxas_log
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    ptxas_log = res.stdout + res.stderr
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+               "-fPIC", "-Xptxas", "-v", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(logs[-1])
+    tmp = out.with_suffix(f".{tag}")
+    if not failed:
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                              *[str(o) for o, _ in jobs]],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append(res.stdout + res.stderr)
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    ptxas_log = "".join(logs)
     os.replace(tmp, out)
     return out
 
@@ -91,6 +110,13 @@ def _bind(so):
     so.celt_comb_step.argtypes = [p, i, i, i, p, p, p, p]
     so.celt_deemph.restype = i
     so.celt_deemph.argtypes = [p, ll, i, i, i, p, p, p, i, p]
+    so.silk_lpc_synth.restype = i
+    so.silk_lpc_synth.argtypes = [p, i, i, p, i, p, p, p, p]
+    so.silk_up2_hq.restype = i
+    so.silk_up2_hq.argtypes = [p, i, i, ll, p, p, p, p]
+    so.silk_core.restype = i
+    so.silk_core.argtypes = [p, ll, p, ll, p, p, p, p, p, p, p, i, i, i, i,
+                             p]
     so.otpu_cuda_error_string.restype = ctypes.c_char_p
     so.otpu_cuda_error_string.argtypes = [i]
     return so

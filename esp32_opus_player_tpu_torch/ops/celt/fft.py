@@ -19,13 +19,32 @@ import functools
 import numpy as np
 import torch
 
-from esp32_opus_player_tpu.ops.celt.synthesis import FFT_STATES
-from esp32_opus_player_tpu.ops.tables.celt_tables import (
-    fft_twiddles48000_960)
-
+from ..tables.celt_tables import (fft_bitrev60, fft_bitrev120,
+                                  fft_bitrev240, fft_bitrev480,
+                                  fft_twiddles48000_960)
 from .torch_synthesis import I32, TRIG as _TRIG, const, smul
 
 _TW = np.asarray(fft_twiddles48000_960, dtype=np.int32)   # (480, 2) r, i
+
+
+class FFTState:
+    """One kiss-FFT plan (esp32_opus_player_tpu/ops/celt/synthesis.py
+    FFTState): size, downshift, (radix, m) stages, bit-reversal."""
+
+    def __init__(self, nfft, shift, factors, bitrev):
+        self.nfft = nfft
+        self.shift = shift
+        self.factors = factors
+        self.bitrev = bitrev.astype(np.int64)
+
+
+FFT_STATES = {
+    0: FFTState(480, -1, [(5, 96), (3, 32), (4, 8), (2, 4), (4, 1)],
+                fft_bitrev480),
+    1: FFTState(240, 1, [(5, 48), (3, 16), (4, 4), (4, 1)], fft_bitrev240),
+    2: FFTState(120, 2, [(5, 24), (3, 8), (2, 4), (4, 1)], fft_bitrev120),
+    3: FFTState(60, 3, [(5, 12), (3, 4), (4, 1)], fft_bitrev60),
+}
 
 
 @functools.lru_cache(maxsize=None)

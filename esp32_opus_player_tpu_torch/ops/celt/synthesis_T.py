@@ -15,11 +15,9 @@ import functools
 import numpy as np
 import torch
 
-from esp32_opus_player_tpu.ops.celt.synthesis import FFT_STATES
-
 from .comb import comb_filter_step_T
 from .deemph import deemphasis_T
-from .fft import fft_blocks
+from .fft import FFT_STATES, fft_blocks
 from .torch_synthesis import (DECODE_BUFFER_SIZE, EB, EMEANS, I32,
                               NB_EBANDS, OVERLAP, SHORT_MDCT_SIZE, SIG_SAT,
                               const, exp2_frac, imdct_tdac)

@@ -14,9 +14,8 @@ import functools
 import numpy as np
 import torch
 
-from esp32_opus_player_tpu.ops.tables.celt_tables import (eMeans, eband5ms,
-                                                          mdct_twiddles960,
-                                                          window120)
+from ..tables.celt_tables import (eMeans, eband5ms, mdct_twiddles960,
+                                  window120)
 
 NB_EBANDS = 21
 SHORT_MDCT_SIZE = 120

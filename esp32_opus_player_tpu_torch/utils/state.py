@@ -1,8 +1,15 @@
 """Decoder state between the JAX package and the port.
 
-The pool state is what a run carries across frames: decode_mem in the
+CELT: what a T-mode pool carries across frames, decode_mem in the
 transposed layout, (CC, 2048+120, B) int32, and the deemphasis memory,
 (B, CC) int32 — the layout of the JAX T-mode StreamPool.state.
+
+Mono SILK: one bucket per internal rate fs, the JAX pool's
+`silk_buckets[fs]` dict, one row per stream: outBuf (B, 40 fs), sLPC
+(B, 16), sIIR (B, 6), sFIR (B, >= 8), delay (B, fs) and sMid (B, 2), all
+int32. The JAX bucket also carries the loss-concealment state (cng,
+conc_e, conc_s), which the port does not take yet (ROADMAP.md queue A
+item 9): it must be zero, as a run without loss leaves it.
 """
 from __future__ import annotations
 
@@ -11,13 +18,30 @@ import torch
 
 from ..ops.celt.torch_synthesis import DECODE_BUFFER_SIZE, OVERLAP
 
+SILK_KEYS = ("outBuf", "sLPC", "sIIR", "sFIR", "delay", "sMid")
+_SILK_PLC_KEYS = ("cng", "conc_e", "conc_s")
 
-def from_jax_state(decode_mem, preemph, device="cpu") -> dict:
-    """numpy arrays in the JAX T layout -> the port's state dict."""
-    dm = np.asarray(decode_mem)
-    pre = np.asarray(preemph)
-    if dm.dtype != np.int32 or pre.dtype != np.int32:
+
+def _i32(a) -> np.ndarray:
+    a = np.asarray(a)
+    if a.dtype != np.int32:
         raise ValueError("decoder state must be int32")
+    return a
+
+
+def from_jax_state(state, preemph=None, *, device, rows=None) -> dict:
+    """The JAX pool's state as the port's state dict on `device`.
+
+    CELT: from_jax_state(decode_mem, preemph, device=...) with arrays in
+    the JAX T layout. SILK: from_jax_state(bucket, device=..., rows=...)
+    with a JAX `silk_buckets[fs]` dict; rows picks the bucket rows of the
+    port's bucket (its streams of that rate, in index order), all rows
+    when None."""
+    if isinstance(state, dict):
+        if preemph is not None:
+            raise ValueError("a SILK bucket takes no preemph")
+        return _silk_from_jax(state, device, rows)
+    dm, pre = _i32(state), _i32(preemph)
     CC, L, B = dm.shape
     if L != DECODE_BUFFER_SIZE + OVERLAP or pre.shape != (B, CC):
         raise ValueError(f"state shapes {dm.shape}, {pre.shape} are not "
@@ -26,7 +50,34 @@ def from_jax_state(decode_mem, preemph, device="cpu") -> dict:
             "preemph": torch.tensor(pre, device=device)}
 
 
+def _silk_from_jax(bucket: dict, device, rows) -> dict:
+    arr = {k: _i32(v) for k, v in bucket.items()}
+    missing = [k for k in SILK_KEYS if k not in arr]
+    if missing:
+        raise ValueError(f"SILK bucket lacks {missing}")
+    if any(arr[k].any() for k in _SILK_PLC_KEYS if k in arr):
+        raise NotImplementedError(
+            "SILK loss-concealment state is not ported to torch yet "
+            "(ROADMAP.md queue A item 9)")
+    B, width = arr["outBuf"].shape
+    fs = width // 40
+    want = dict(outBuf=(B, 40 * fs), sLPC=(B, 16), sIIR=(B, 6),
+                delay=(B, fs), sMid=(B, 2))
+    bad = {k: arr[k].shape for k, s in want.items() if arr[k].shape != s}
+    if bad or fs not in (8, 12, 16) or arr["sFIR"].shape[0] != B \
+            or arr["sFIR"].shape[1] < 8:
+        raise ValueError(
+            f"not a mono SILK bucket: {bad or arr['sFIR'].shape}")
+    sel = slice(None) if rows is None else np.asarray(rows, dtype=np.int64)
+    return {k: torch.tensor(arr[k][sel], device=device) for k in SILK_KEYS}
+
+
 def to_numpy(state: dict):
-    """The port's state dict -> (decode_mem, preemph) numpy int32."""
-    return (state["decode_mem"].cpu().numpy(),
-            state["preemph"].cpu().numpy())
+    """A copy of the port's state dict as numpy int32: (decode_mem,
+    preemph) for a CELT state, a dict of the SILK_KEYS arrays for a SILK
+    bucket."""
+    def copy(t):
+        return t.cpu().numpy().copy()
+    if "decode_mem" in state:
+        return copy(state["decode_mem"]), copy(state["preemph"])
+    return {k: copy(state[k]) for k in SILK_KEYS}

@@ -100,3 +100,83 @@ def test_pool_loss_card_matches_cpu(dev):
             for d in (dev, "cpu")]
     for a, b in zip(*outs):
         assert np.array_equal(a, b)
+
+
+# ---- mono SILK: K5-K7 and the pool --------------------------------------
+
+SILK_SETS = [(16, 4, 16), (12, 4, 16), (8, 4, 10), (16, 2, 16)]
+
+
+@pytest.mark.parametrize("fs,nb,order", SILK_SETS)
+def test_silk_core_kernel_matches_plain(dev, fs, nb, order):
+    from esp32_opus_player_tpu_torch.ops.silk.core_kernel import (
+        silk_core, silk_core_ref)
+    from torch_port_util import silk_core_inputs
+    rng = np.random.default_rng(fs * 10 + nb)
+    args = tuple(torch.as_tensor(a, device=dev)
+                 for a in silk_core_inputs(rng, B, fs, nb))
+    kw = dict(fs_khz=fs, nb_subfr=nb, order=order)
+    n = silk_core.launches
+    got = silk_core(*args, **kw)
+    assert silk_core.launches == n + 1
+    want = silk_core_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [160, 16, 144, 1])
+def test_up2_kernel_matches_plain(dev, n):
+    """Any n; states over the whole int32 range, so the wrapping sums
+    are exercised."""
+    from esp32_opus_player_tpu_torch.ops.silk.torch_core import up2_hq_scan
+    from esp32_opus_player_tpu_torch.ops.silk.up2_hq import up2_hq
+    rng = np.random.default_rng(n)
+    x = t32(rng.integers(-32768, 32768, (B, n)), dev)
+    S = t32(rng.integers(-2 ** 31, 2 ** 31, (B, 6)), dev)
+    got, want = up2_hq(S, x), up2_hq_scan(S, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("order", [16, 10])
+def test_lpc_kernel_matches_plain(dev, order):
+    from esp32_opus_player_tpu_torch.ops.silk.lpc_synth import (
+        lpc_synth, lpc_synth_ref)
+    rng = np.random.default_rng(order)
+    pres = t32(rng.integers(-(1 << 24), 1 << 24, (64, 80)), dev)
+    A = t32(rng.integers(-(1 << 16), 1 << 16, (64, order)), dev)
+    s0 = t32(rng.integers(-2 ** 31, 2 ** 31, (64, 16)), dev)
+    got = lpc_synth(pres, A, s0, order=order)
+    want = lpc_synth_ref(pres, A, s0, order=order)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("rows", [128, 127])
+def test_silk_core_dispatch(dev, rows):
+    """128 rows or more take K7; fewer take the chunked core with K5."""
+    from esp32_opus_player_tpu_torch.ops.silk import torch_core as tc
+    from esp32_opus_player_tpu_torch.ops.silk.core_kernel import silk_core
+    from esp32_opus_player_tpu_torch.ops.silk.lpc_synth import lpc_synth
+    from torch_port_util import silk_core_inputs
+    args = tuple(torch.as_tensor(a, device=dev) for a in silk_core_inputs(
+        np.random.default_rng(rows), rows, 16, 4))
+    n7, n5 = silk_core.launches, lpc_synth.launches
+    tc.silk_core_frame(*args, fs_khz=16, nb_subfr=4, order=16)
+    assert (silk_core.launches - n7, lpc_synth.launches - n5) == \
+        ((1, 0) if rows >= 128 else (0, 4))
+
+
+@pytest.mark.parametrize("names,n,K", [
+    (("silk_wb_mono_20ms", "silk_wb_fec_mono_20ms"), 256, 8),
+    (("silk_nb_mono_20ms", "silk_mb_mono_20ms", "silk_wb_mono_20ms"), 12,
+     3)])
+def test_silk_pool_on_card_matches_golden(dev, names, n, K):
+    from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
+    src = [ROOT / "fixtures" / f"{names[i % len(names)]}.opus"
+           for i in range(n)]
+    outs = StreamPool(src, superstep_k=K, device=dev).run()
+    for i, out in enumerate(outs):
+        gold = _golden(names[i % len(names)])
+        assert len(out) > 90000, i
+        assert np.array_equal(np.repeat(out, 2, axis=1), gold[:len(out)]), i

@@ -4,6 +4,7 @@ frame (K = 1) and in K = 3 windows (the last one partial), and a lost
 packet gives silence with the stream's state untouched."""
 import numpy as np
 import pytest
+import torch
 
 from esp32_opus_player_tpu import DecoderConfig, decode_file
 from esp32_opus_player_tpu.host import opusfile
@@ -35,7 +36,7 @@ def test_lost_packet_is_silence_with_state_untouched(K):
     second window is partial): silence out, state untouched, exactly the
     scalar decode with packet 1 replaced by silence."""
     src = str(fixture_path("celt_fb_mono_20ms"))
-    pool = StreamPool([src] * 3, channels=1, superstep_k=K)
+    pool = StreamPool([src] * 3, channels=1, superstep_k=K, device="cpu")
     for k in range(5):
         pool.step(lost={2} if k == 1 else None)
     outs = pool.collected()
@@ -57,7 +58,7 @@ def test_all_lost_steps_inside_a_window():
     the output equals the per-frame pool's."""
     src = str(fixture_path("celt_fb_mono_drums_20ms"))
     loss = lambda i, k: k in (2, 3, 7)
-    outs = [StreamPool([src], superstep_k=K).run(loss=loss)[0]
+    outs = [StreamPool([src], superstep_k=K, device="cpu").run(loss=loss)[0]
             for K in (3, 1)]
     assert np.array_equal(outs[0], outs[1])
     skip = opusfile.open_file(src).jobs[0].discard_front
@@ -65,7 +66,24 @@ def test_all_lost_steps_inside_a_window():
 
 
 def test_unsupported_sources_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        StreamPool([str(fixture_path("silk_wb_mono_20ms"))])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        StreamPool([str(fixture_path("celt_fb_mono_5ms"))])
+    for name, channels, item in [("silk_wb_stereo_20ms", 2, "10"),
+                                 ("hybrid_swb_mono_20ms", 1, "11"),
+                                 ("celt_fb_mono_5ms", 1, "6")]:
+        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+            StreamPool([str(fixture_path(name))], channels=channels,
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        StreamPool([str(fixture_path(n)) for n in ("celt_fb_mono_20ms",
+                                                   "silk_wb_mono_20ms")],
+                   device="cpu")
+
+
+def test_default_device_is_the_card():
+    """Without a device the pool runs on the card; with no card it
+    raises instead of falling back to the CPU."""
+    src = [str(fixture_path("celt_fb_mono_20ms"))]
+    if torch.cuda.is_available():
+        assert StreamPool(src).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            StreamPool(src)

@@ -21,10 +21,10 @@ from torch_port_util import assert_equal
 def test_state_from_jax_then_one_frame():
     srcs = [str(fixture_path(n))
             for n in ("celt_fb_mono_20ms", "celt_fb_mono_drums_20ms")]
-    pool = StreamPool(srcs, channels=1, superstep_k=4)
+    pool = StreamPool(srcs, channels=1, superstep_k=4, device="cpu")
     for k in range(3):                  # stream 1 loses packet 1
         pool.step(lost={1} if k == 1 else None)
-    stg = pool._stg_np[:3].copy()       # the window's staging, frames 0-2
+    stg = pool._lanes[0].stg_np[:3].copy()   # staging of frames 0-2
     kw = dict(LM=3, C=1, CC=1)
 
     def jax_step(dm, pre, s):
@@ -35,7 +35,7 @@ def test_state_from_jax_then_one_frame():
 
     dm = np.zeros((1, 2168, 2), np.int32)
     pre = np.zeros((2, 1), np.int32)
-    port = from_jax_state(dm, pre)
+    port = from_jax_state(dm, pre, device="cpu")
     for k in range(2):
         _, dm, pre = jax_step(dm, pre, stg[k])
         celt_packed_frame_T(port["decode_mem"], port["preemph"],
@@ -43,7 +43,7 @@ def test_state_from_jax_then_one_frame():
     got_dm, got_pre = to_numpy(port)
     assert_equal(got_dm, dm, "decode_mem after frame 1")
     assert_equal(got_pre, pre, "preemph after frame 1")
-    state = from_jax_state(dm, pre)
+    state = from_jax_state(dm, pre, device="cpu")
     pcm_j, dm_j, pre_j = jax_step(dm, pre, stg[2])
     pcm_t = celt_packed_frame_T(state["decode_mem"], state["preemph"],
                                 torch.from_numpy(stg[2]), masked=True, **kw)

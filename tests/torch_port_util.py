@@ -62,6 +62,33 @@ def synth_inputs(rng, B, C, CC, LM):
             comb_params(rng, B), tr)
 
 
+def silk_core_inputs(rng, B, fs, nb):
+    """Random inputs of one SILK decode_core frame, row layout, drawn as
+    tests/test_device_batch.py draws them: the 12 arguments of
+    silk_core_frame as numpy (flags as bool). Edge rows: row 0 at the
+    smallest lag (2 * fs, PE_MIN_LAG); rows 1-8 take the eight
+    voiced/rewhiten/match combinations in every subframe."""
+    subfr, ltp_mem = 5 * fs, 20 * fs
+    frame = nb * subfr
+    i32 = np.int32
+    ob = rng.integers(-30000, 30000, (B, ltp_mem + frame)).astype(i32)
+    sl = rng.integers(-(1 << 20), 1 << 20, (B, 16)).astype(i32)
+    exc = rng.integers(-(1 << 16), 1 << 16, (B, frame)).astype(i32)
+    A = rng.integers(-(1 << 12), 1 << 12, (B, 2, 16)).astype(i32)
+    Bq = rng.integers(-(1 << 12), 1 << 12, (B, nb, 5)).astype(i32)
+    gains = rng.integers(1 << 14, 1 << 20, (B, nb)).astype(i32)
+    inv = rng.integers(1 << 24, 1 << 30, (B, nb)).astype(i32)
+    lag = rng.integers(2 * fs, 18 * fs + 1, (B, nb)).astype(i32)
+    voiced = rng.integers(0, 2, (B, nb)).astype(bool)
+    rw = rng.integers(0, 2, (B, nb)).astype(bool)
+    adj = rng.integers(1 << 14, 1 << 17, (B, nb)).astype(i32)
+    match = rng.integers(0, 2, (B, nb)).astype(bool)
+    lag[0] = 2 * fs
+    for r in range(min(8, B - 1)):
+        voiced[r + 1], rw[r + 1], match[r + 1] = r & 1, r >> 1 & 1, r >> 2
+    return (ob, sl, exc, A, Bq, gains, inv, lag, voiced, rw, adj, match)
+
+
 def port_synth_step(dm, pre, X, bandE, start, end, c1, c2, tr, **kw):
     """The port's transposed frame step on row-layout numpy inputs (as
     `synth_inputs` draws them); returns row-layout numpy (pcm,

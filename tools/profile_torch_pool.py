@@ -1,7 +1,9 @@
-"""Where the time of the torch port's CELT pool goes on one CUDA card.
+"""Where the time of the torch port's pools goes on one CUDA card.
 
-Runs the pools of chip_smoke.py (2048 mono streams in K = 64 windows,
-1024 stereo streams one frame at a time) on the card, each twice in one
+Runs the pools of chip_smoke.py (2048 mono CELT streams in K = 64
+windows, 1024 stereo CELT streams one frame at a time, 2048 mono WB
+SILK streams in K = 64 windows, 48 mono NB/MB/WB SILK streams in K = 3
+windows, three buckets of 16 rows) on the card, each twice in one
 process: first plain, for the wall time of run() and the device time of
 its windows (CUDA events), then under torch.profiler, for the card's
 busy time (device time of every kernel and copy), the kernel launches
@@ -9,7 +11,8 @@ per frame step and the device time per kernel. A small pool runs first,
 so kernel builds and lazy tables stay out of both. Run from the
 repository root:
 
-    python3 tools/profile_torch_pool.py [mono] [stereo] [--out DIR]
+    python3 tools/profile_torch_pool.py [mono] [stereo] [silk] [silk_small]
+        [--out DIR]
 
 Prints one JSON line per pool; with --out, also writes the profiler's
 per-kernel table for each pool to DIR/profile_<pool>.txt.
@@ -22,23 +25,25 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# pool: (channels, streams, superstep_k)
-POOLS = {"mono": (1, 2048, 64), "stereo": (2, 1024, 1)}
+# pool: (fixtures, channels, streams, superstep_k)
+POOLS = {
+    "mono": (("celt_fb_mono_20ms", "celt_fb_mono_drums_20ms"), 1, 2048, 64),
+    "stereo": (("celt_fb_stereo_20ms", "celt_fb_stereo_drums_20ms"), 2,
+               1024, 1),
+    "silk": (("silk_wb_mono_20ms", "silk_wb_fec_mono_20ms"), 1, 2048, 64),
+    "silk_small": (("silk_nb_mono_20ms", "silk_mb_mono_20ms",
+                    "silk_wb_mono_20ms"), 1, 48, 3),
+}
 
 
-def sources(channels: int, n: int):
-    kind = "mono" if channels == 1 else "stereo"
-    paths = [ROOT / "tests" / "fixtures" / f"celt_fb_{kind}{d}_20ms.opus"
-             for d in ("", "_drums")]
-    return [paths[i % 2] for i in range(n)]
-
-
-def run_pool(channels: int, n: int, K: int):
-    """One pool through StreamPool.run(); returns (pool, wall s of run)."""
+def run_pool(names, channels: int, n: int, K: int):
+    """One pool of n streams (names[i % len(names)]) through
+    StreamPool.run(); returns (pool, wall s of run)."""
     import torch
     from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
-    pool = StreamPool(sources(channels, n), channels=channels,
-                      superstep_k=K, device="cuda")
+    paths = [ROOT / "tests" / "fixtures" / f"{m}.opus" for m in names]
+    pool = StreamPool([paths[i % len(paths)] for i in range(n)],
+                      channels=channels, superstep_k=K, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pool.run()
@@ -54,13 +59,12 @@ def device_us(e) -> float:
 def profile(name: str, out: pathlib.Path | None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity
-    channels, n, K = POOLS[name]
-    pool, wall = run_pool(channels, n, K)
+    pool, wall = run_pool(*POOLS[name])
     win = pool.window_device_ms()
     steps = max(len(s.jobs) for s in pool.streams)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        _, prof_wall = run_pool(channels, n, K)
+        _, prof_wall = run_pool(*POOLS[name])
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(device_us(e) for e in dev)
@@ -74,7 +78,8 @@ def profile(name: str, out: pathlib.Path | None) -> dict:
         (out / f"profile_{name}.txt").write_text(
             prof.key_averages().table(sort_by=sort, row_limit=40))
     return {
-        "pool": name, "streams": n, "superstep_k": K, "frame_steps": steps,
+        "pool": name, "streams": POOLS[name][2],
+        "superstep_k": POOLS[name][3], "frame_steps": steps,
         "wall_s": wall, "window_device_ms": sum(ms for _, ms in win),
         "profiled_wall_s": prof_wall, "busy_ms": busy_us / 1e3,
         "busy_ms_per_step": busy_us / 1e3 / steps,
@@ -87,7 +92,8 @@ def profile(name: str, out: pathlib.Path | None) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("pools", nargs="*", help="mono, stereo (default both)")
+    ap.add_argument("pools", nargs="*",
+                    help=f"{', '.join(POOLS)} (default all)")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args()
     args.pools = args.pools or list(POOLS)
@@ -102,8 +108,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     card = card.strip().splitlines()[0]
-    for channels in (1, 2):                 # builds and lazy tables
-        run_pool(channels, 4, 3)
+    for names, channels, _, _ in POOLS.values():  # builds, lazy tables
+        run_pool(names, channels, 4, 3)
     for name in args.pools:
         print(json.dumps({"card": card, **profile(name, args.out)}),
               flush=True)
