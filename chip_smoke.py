@@ -22,8 +22,18 @@ Phases (any failure exits non-zero; there is no CPU path):
    over the NB, MB and WB fixtures in K = 3 windows (buckets of 16 rows:
    K5 and K6), every stream bit-equal to tests/golden and the small pool
    equal between card and CPU, with K5-K7's launch counts from that run;
-6. one JSON line of per-kernel results, and last the line
-   {"ok": true, "device": {...}}.
+6. the lossy mono SILK path: 2048 WB streams in K = 64 windows, RFC mode
+   with concealment (rfc_plc), a tenth of the rows lost on every step,
+   once without and once with in-band FEC; no golden exists for RFC
+   concealment, so the 20 distinct (fixture, loss phase) streams run
+   first as a CPU pool and every card stream is held to its twin among
+   them; K8's and K9's launch counts come from these runs. Then compat
+   loss (every 7th packet) on the card against the reference's
+   tests/golden/silk_wb_mono_20ms.loss7.pcm;
+7. one JSON line of per-kernel results (all nine kernels; K4, the fused
+   comb + deemphasis, is held to its plain version and timed beside
+   K2 + K3 but, as in the JAX package, no path calls it: launches 0),
+   and last the line {"ok": true, "device": {...}}.
 """
 import json
 import pathlib
@@ -220,13 +230,43 @@ def k7_work(args, fs: int, nb: int, order: int) -> tuple:
     return float(nbytes), ops
 
 
+def k8_work(args, fs: int, nb: int, order: int) -> tuple:
+    """One concealed frame from this run's inputs. Reads: rand, A, B4,
+    the lags and two gains, sLPC, and the outBuf positions the
+    rewhitening reads (the last lag0 + 2 and the order before them);
+    writes: xq and sLPC. Per sample: the 5 LTP taps (smlawb, 6 each) and
+    4 more, the LPC taps (7 each) and 8 more, the gain scaling (9); per
+    rewhitened position 3 * order + 12."""
+    import numpy as np
+    lag0 = np.clip(np.asarray(args[5])[:, 0], 2 * fs, 18 * fs)
+    Bn, frame = len(lag0), nb * 5 * fs
+    n_pos = float((lag0 + 2).sum())
+    nbytes = 4 * (n_pos + Bn * order + Bn * (frame + order + 5 * nb + nb
+                                             + 2 + 16) + Bn * (frame + 16))
+    ops = Bn * frame * (5 * 6 + 4 + 7 * order + 8 + 9) \
+        + n_pos * (3 * order + 12)
+    return float(nbytes), float(ops)
+
+
+def k9_work(mask, frame: int, order: int) -> tuple:
+    """One comfort-noise frame from this run's mask: every row reads its
+    frame, its mask and its state and writes both back; a row with the
+    mask on also reads its excitation, A and gain and walks the ring:
+    per sample the order taps (7 each) and 8 more, then the scaling, two
+    clips and the sum (11)."""
+    Bn, on = len(mask), float(mask.sum())
+    nbytes = 4 * (Bn * (2 * frame + 1 + 32) + on * (frame + order + 1))
+    return float(nbytes), on * frame * (7 * order + 8 + 11)
+
+
 def check_celt_kernels(dev, card, sm_hz):
     """Every CELT kernel against its plain version at B = 2048
     (bit-equal), timed at the main path's shapes."""
     import numpy as np
     import torch
     from esp32_opus_player_tpu_torch.ops.celt.comb import (
-        comb_filter_step_T, comb_filter_step_T_ref)
+        comb_deemph_step_T, comb_deemph_step_T_ref, comb_filter_step_T,
+        comb_filter_step_T_ref)
     from esp32_opus_player_tpu_torch.ops.celt.deemph import (
         deemphasis_T, deemphasis_T_ref)
     from esp32_opus_player_tpu_torch.ops.celt.fft import (fft_blocks,
@@ -300,6 +340,34 @@ def check_celt_kernels(dev, card, sm_hz):
         if CC == 1:
             res["K3"] = t
     res["K3"]["max_abs_err"] = err
+
+    # K4: K2 then K3 in one launch, on K2's inputs and one channel's
+    # memory; timed beside the two launches it would replace
+    mem = t32(rng.integers(-(1 << 20), 1 << 20, B))
+    want = comb_deemph_step_T_ref(buf.clone(), DBS - 960, 960, c1, c2, mem)
+    got = comb_deemph_step_T(buf.clone(), DBS - 960, 960, c1, c2, mem)
+    if not same(got, want):
+        raise SystemExit(f"K4 differs from its plain version: "
+                         f"{max_err(got[0], want[0])}")
+
+    def k2_then_k3():
+        comb_filter_step_T(work, DBS - 960, 960, c1, c2)
+        return deemphasis_T(work[None, DBS - 960:DBS], mem[:, None])
+
+    # reads and operations: K2's, then K3's 8 per sample; the frame's
+    # rows are read once (not again by the epilogue); writes: K2's rows,
+    # the int16 PCM and the memory
+    k2_bytes, k2_ops = k2_work(960, c1, c2)
+    res["K4"] = dict(
+        max_abs_err=max(max_err(g, w) for g, w in zip(got, want)),
+        **timings(lambda: comb_deemph_step_T(work, DBS - 960, 960, c1, c2,
+                                             mem),
+                  lambda: comb_deemph_step_T_ref(work, DBS - 960, 960, c1,
+                                                 c2, mem), 20),
+        **bound(k2_bytes + B * (960 * 2 + 8), k2_ops + B * 960 * 8, sm_hz),
+        k2_then_k3_ms=device_ms(k2_then_k3, 20))
+    report(card, f"K4 comb_deemph_step_T, N=960, B={B} (K2 then K3 in two "
+           f"launches: {res['K4']['k2_then_k3_ms']:.4f} ms)", res["K4"])
     return res
 
 
@@ -408,6 +476,79 @@ def check_silk_kernels(dev, card, sm_hz):
     return res
 
 
+def check_loss_kernels(dev, card, sm_hz):
+    """K8 and K9 against their plain versions on the card (bit-equal), at
+    the lossy pool's shapes: K8 at B = 2048 on all four (fs, nb, order)
+    sets, rows 0 and 1 at the lag edges 2 fs and 18 fs, timed at WB
+    (16, 4, 16); K9 at B = 2048, frame 320, order 16, with every row
+    masked on and with the pool's mask (every 10th row lost), timed with
+    the latter."""
+    import numpy as np
+    import torch
+    from esp32_opus_player_tpu_torch.ops.silk.cng_kernel import cng_add
+    from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import (
+        silk_plc_conceal)
+    from esp32_opus_player_tpu_torch.ops.silk.torch_plc import (
+        cng_add_xla, silk_plc_conceal_frame_xla)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_util import silk_plc_inputs
+    rng = np.random.default_rng(2026)
+
+    def dev_t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    res = {}
+    err = 0
+    for fs, nb, order in [(16, 4, 16), (12, 4, 10), (8, 4, 10),
+                          (16, 2, 16)]:
+        args = silk_plc_inputs(rng, B, fs, nb, order)
+        targs = tuple(dev_t(a) for a in args)
+        kw = dict(fs_khz=fs, nb_subfr=nb, order=order)
+        got = silk_plc_conceal(*targs, **kw)
+        want = silk_plc_conceal_frame_xla(*targs, **kw)
+        if not same(got, want):
+            raise SystemExit(f"K8 ({fs}, {nb}, {order}) differs from its "
+                             f"plain version: {max_err(got[0], want[0])}")
+        err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
+        if (fs, nb, order) == (16, 4, 16):
+            res["K8"] = dict(
+                **timings(lambda: silk_plc_conceal(*targs, **kw),
+                          lambda: silk_plc_conceal_frame_xla(*targs, **kw),
+                          20),
+                **bound(*k8_work(args, fs, nb, order), sm_hz))
+    res["K8"]["max_abs_err"] = err
+    report(card, f"K8 silk_plc_conceal, all 4 (fs, nb, order) sets; timed: "
+           f"(16, 4, 16), B={B}", res["K8"])
+
+    frame, order = 320, 16
+    xq = dev_t(rng.integers(-32768, 32768, (B, frame)).astype(np.int32))
+    exc = dev_t(rng.integers(-(1 << 16), 1 << 16, (B, frame)).astype(
+        np.int32))
+    A = dev_t(rng.integers(-(1 << 12), 1 << 12, (B, order)).astype(np.int32))
+    gain = dev_t(rng.integers(1 << 8, 1 << 14, B).astype(np.int32))
+    st0 = dev_t(rng.integers(-(1 << 31), 1 << 31, (B, 16)).astype(np.int32))
+    err = 0
+    for m in (np.ones(B, bool), np.arange(B) % 10 == 3):
+        mask = dev_t(m)
+        got = cng_add(xq, exc, A, gain, st0, mask, frame=frame, order=order)
+        want = cng_add_xla(xq, exc, A, gain, st0, mask, frame=frame,
+                           order=order)
+        if not same(got, want):
+            raise SystemExit("K9 differs from its plain version")
+        err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
+    res["K9"] = dict(
+        max_abs_err=err,
+        **timings(lambda: cng_add(xq, exc, A, gain, st0, mask, frame=frame,
+                                  order=order),
+                  lambda: cng_add_xla(xq, exc, A, gain, st0, mask,
+                                      frame=frame, order=order), 20),
+        **bound(*k9_work(m, frame, order), sm_hz))
+    report(card, f"K9 cng_add, mask all on and every 10th row; timed: "
+           f"every 10th row, frame={frame}, order={order}, B={B}",
+           res["K9"])
+    return res
+
+
 def golden(name):
     import numpy as np
     return np.fromfile(ROOT / "tests" / "golden" / f"{name}.pcm",
@@ -418,24 +559,32 @@ def fixture(name):
     return ROOT / "tests" / "fixtures" / f"{name}.opus"
 
 
-def run_pool(dev, card, label, names, n, K, channels=1):
+def run_pool(dev, card, label, names, n, K, channels=1, twins=None,
+             loss=None, fec=False, **kw):
     """One pool of n streams (names[i % len(names)]) through
-    StreamPool.run(), every stream held against tests/golden. Returns the
-    PCM."""
+    StreamPool.run(), every stream held against tests/golden, or, with
+    twins (a list of PCM arrays), stream i against twins[i % len(twins)].
+    Returns the PCM."""
     import numpy as np
     import torch
     from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     pool = StreamPool([fixture(names[i % len(names)]) for i in range(n)],
-                      channels=channels, superstep_k=K, device=dev)
+                      channels=channels, superstep_k=K, device=dev, **kw)
     t1 = time.perf_counter()
-    outs = pool.run()
+    outs = pool.run(loss=loss, fec=fec)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     frames = int(sum(len(p.jobs) for p in pool.streams))
     gold = {m: golden(m) for m in names}
     for i, out in enumerate(outs):
+        if twins is not None:
+            ref = twins[i % len(twins)]
+            if len(out) < 90000 or not np.array_equal(out, ref):
+                raise SystemExit(f"{label} pool stream {i} differs from "
+                                 f"its CPU twin")
+            continue
         g = gold[names[i % len(names)]]
         if channels == 1:
             out = np.repeat(out, 2, axis=1)
@@ -448,8 +597,9 @@ def run_pool(dev, card, label, names, n, K, channels=1):
     dev_ms = sum(ms for _, ms in win)
     steps = max(len(p.jobs) for p in pool.streams)
     fps = frames / (t2 - t1)
+    what = "tests/golden" if twins is None else "their CPU twins"
     print(f"[{card}] {label} pool B={n} K={K}: all {n} streams bit-equal "
-          f"to tests/golden; {frames} frames; setup {t1 - t0:.3f} s; run "
+          f"to {what}; {frames} frames; setup {t1 - t0:.3f} s; run "
           f"{t2 - t1:.3f} s wall = {fps:.1f} frames/s = "
           f"{fps * 0.02:.1f} realtime streams; device {dev_ms:.3f} ms in "
           f"{len(win)} windows = {dev_ms / len(win):.3f} ms/window, "
@@ -468,8 +618,10 @@ def main() -> int:
     from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
     from esp32_opus_player_tpu_torch.ops import _build
     from esp32_opus_player_tpu_torch.ops.celt import comb, deemph, fft
-    from esp32_opus_player_tpu_torch.ops.silk import (core_kernel,
-                                                      lpc_synth, up2_hq)
+    from esp32_opus_player_tpu_torch.ops.silk import (cng_kernel,
+                                                      core_kernel,
+                                                      lpc_synth, plc_kernel,
+                                                      up2_hq)
     dev = torch.device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     card = nvidia_smi("name,power.limit")
@@ -487,10 +639,11 @@ def main() -> int:
 
     res = check_celt_kernels(dev, card, sm_mhz * 1e6)
     res.update(check_silk_kernels(dev, card, sm_mhz * 1e6))
+    res.update(check_loss_kernels(dev, card, sm_mhz * 1e6))
 
     # the CELT path: counts set to 0 just before, read just after
     celt = {"K1": fft.fft_blocks, "K2": comb.comb_filter_step_T,
-            "K3": deemph.deemphasis_T}
+            "K3": deemph.deemphasis_T, "K4": comb.comb_deemph_step_T}
     for w in celt.values():
         w.launches = 0
     run_pool(dev, card, "CELT mono", ["celt_fb_mono_20ms",
@@ -525,9 +678,54 @@ def main() -> int:
         raise SystemExit("SILK NB/MB/WB pool: card and CPU differ")
     print("SILK NB/MB/WB pool (48 streams, K=3): card == CPU")
 
+    # the lossy mono SILK path: counts set to 0 just before, read just
+    # after. A tenth of the rows is lost on every step; the 20 distinct
+    # (fixture, loss phase) streams run first on the CPU as the twins.
+    wb = ["silk_wb_mono_20ms", "silk_wb_fec_mono_20ms"]
+    tenth = lambda i, k: i % 10 == k % 10
+    rfc = dict(compat_ref=False, rfc_plc=True)
+    twins = {}
+    t0 = time.perf_counter()
+    for fec in (False, True):
+        twins[fec] = StreamPool([fixture(wb[i % 2]) for i in range(20)],
+                                superstep_k=64, device="cpu",
+                                **rfc).run(loss=tenth, fec=fec)
+    if all(np.array_equal(a, b) for a, b in zip(twins[False], twins[True])):
+        raise SystemExit("lossy SILK twins: FEC changed nothing")
+    print(f"lossy SILK twins (20 streams on the CPU, without and with "
+          f"FEC): {time.perf_counter() - t0:.1f} s")
+    lossy = {"K8": plc_kernel.silk_plc_conceal, "K9": cng_kernel.cng_add}
+    for w in lossy.values():
+        w.launches = 0
+    for fec in (False, True):
+        run_pool(dev, card, f"lossy SILK WB (10 % lost, fec={fec})", wb, B,
+                 64, twins=twins[fec], loss=tenth, fec=fec, **rfc)
+    launches.update({k: w.launches for k, w in lossy.items()})
+    print(f"[{card}] lossy SILK WB pools: K8 {launches['K8']} and K9 "
+          f"{launches['K9']} launches in 2 runs of "
+          f"{len(twins[False][0]) // 960 + 1} frame steps")
+
+    seventh = lambda i, k: k > 0 and k % 7 == 0
+    pool = StreamPool([fixture(wb[0])] * 4, superstep_k=3, device=dev)
+    outs = pool.run(loss=seventh)
+    gold = np.fromfile(ROOT / "tests" / "golden"
+                       / "silk_wb_mono_20ms.loss7.pcm",
+                       dtype=np.int16).reshape(-1, 1)
+    # the golden is untrimmed: the pool's PCM starts after the pre-skip
+    pre = sum(j.discard_front for j in pool.streams[0].jobs)
+    for out in outs:
+        m = min(len(out), len(gold) - pre)
+        if m < 90000 or not np.array_equal(out[:m], gold[pre:pre + m]):
+            raise SystemExit("compat-loss SILK pool differs from "
+                             "tests/golden/silk_wb_mono_20ms.loss7.pcm")
+    print("compat-loss SILK pool (4 WB streams, K=3, every 7th packet "
+          "lost): card == tests/golden loss7")
+
     print(f"[{card}] main-path launches: {launches}")
     for k, v in launches.items():
-        if v <= 0:
+        # K4 is on no path, as in the JAX package: the CELT frame step
+        # runs K2 and K3 apart, so the CELT pools launch it 0 times
+        if v <= 0 and k != "K4":
             raise SystemExit(f"{k} was never launched on the main path")
 
     pkg, jx = "esp32_opus_player_tpu_torch/csrc/", "esp32_opus_player_tpu/"
@@ -538,10 +736,14 @@ def main() -> int:
                "ops/celt/pallas_comb.py:237"),
         "K3": ("celt_deemph", "celt_deemph.cu",
                "ops/celt/jax_synthesis_T.py:162"),
+        "K4": ("celt_comb_deemph", "celt_comb_deemph.cu",
+               "ops/celt/pallas_comb.py:284"),
         "K5": ("silk_lpc_synth", "silk_lpc.cu",
                "ops/silk/pallas_core.py:96"),
         "K6": ("silk_up2_hq", "silk_up2.cu", "ops/silk/pallas_core.py:191"),
         "K7": ("silk_core", "silk_core.cu", "ops/silk/pallas_core.py:409"),
+        "K8": ("silk_plc", "silk_plc.cu", "ops/silk/pallas_core.py:562"),
+        "K9": ("silk_cng", "silk_cng.cu", "ops/silk/pallas_core.py:631"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # no single PyTorch call computes these int32 fixed-point recurrences
@@ -550,6 +752,8 @@ def main() -> int:
                     launches=launches[k], **{x: res[k][x] for x in keys},
                     library_ms=None)
                for k, (n, s, r) in meta.items()]
+    # K4's yardstick: the two launches it would replace, same inputs
+    kernels[3]["k2_then_k3_ms"] = res["K4"]["k2_then_k3_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -204,6 +204,28 @@ class SilkGroup:
         self.buf = _SilkBuffers(m, self.frame_len, self.nfr)
         self.ec = np.zeros((m, 9), dtype=np.int32)
 
+    def frame0(self, r: int, k: int) -> bytes:
+        """The first frame's payload of packet k of row r."""
+        o = int(self.table.offs[r, k])
+        return self.table.blob[o:o + int(self.table.lens[r, k])].tobytes()
+
+    def put_row(self, r: int, p: dict) -> None:
+        """Write one frame's params dict (as NativeSilkHost.frame or
+        .fec_frame returns it) into row r of the group buffers, as the
+        batch entry would have left it."""
+        b = self.buf
+        b.exc[r] = p["exc"]
+        for name in ("A", "B", "gains", "inv", "lag", "adj"):
+            getattr(b, name)[r] = p[name]
+        b.flags[r, 0:4] = p["voiced"]
+        b.flags[r, 4:8] = p["rewhiten"]
+        b.flags[r, 8:12] = p["match"]
+        b.misc[r] = 0
+        b.misc[r, 0] = p["signal_type"]
+        b.misc[r, 3] = p["lag_prev"]
+        b.misc[r, 4] = p["ltp_scale"]
+        b.misc[r, 8:24] = p["nlsf"]
+
     def decode(self, pos, active):
         offs, lens, ok = self.table.row_args(pos, active)
         m = len(self.idxs)

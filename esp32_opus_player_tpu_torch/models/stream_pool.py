@@ -20,10 +20,19 @@ row order. Per step, for each lane:
 Supported: uniform 20 ms (LM 3) CELT-only streams (compat_ref=True, or
 RFC mode at fullband), channels 1 or 2; mono SILK-only streams with one
 20 ms frame per packet at a constant bandwidth, channels 1. Both with
-superstep_k >= 1, out_fs 48000, output "host". A lost CELT packet
-(step(lost=...), run(loss=...)) gives silence and leaves the stream's
-state untouched: a masked row. Everything else raises
-NotImplementedError naming the ROADMAP.md item that brings it.
+superstep_k >= 1, out_fs 48000, output "host".
+
+Lost packets (step(lost=, fec=), run(loss=, fec=)): a lost CELT packet
+gives silence and leaves the stream's state untouched, a masked row. A
+lost SILK packet, as in the JAX pool: in compat mode it decodes the
+normal frame path over an empty bitstream; in RFC mode with
+rfc_plc=True it is concealed on the device (silk_PLC conceal, kernel K8,
+then comfort noise, K9), as a row of the same window frame as the
+step's decoded rows, and the first good frame after a loss run is
+glue-smoothed; with fec, in both modes, the lost frame is decoded from
+the next packet's in-band LBRR copy when that packet has one.
+Everything else raises NotImplementedError naming the ROADMAP.md item
+that brings it.
 """
 from __future__ import annotations
 
@@ -35,12 +44,14 @@ import numpy as np
 import torch
 
 from ..host import opusfile
+from ..host.native import PlcTrackerState, StateArray
 from ..host.packet import (Mode, get_bandwidth, get_nb_channels,
                            get_nb_frames, get_samples_per_frame)
 from ..ops.celt.torch_synthesis import (DECODE_BUFFER_SIZE, NB_EBANDS,
                                         OVERLAP)
 from . import host_groups as hg
 from . import silk_pool
+from .batch_silk import LAST_LOST_WORD, NativePlcTracker, good_frames
 from .celt_pool_T import _CELT_HDR, celt_pool_superstep_T
 
 _FULLBAND = 1105
@@ -93,30 +104,38 @@ class _Lane:
         self.masked: list[bool] = []
         self.win = _Window(self)
 
-    def stage(self, sel):
-        """Write this step's staging frame (rows `sel` decoded, the rest
-        inactive) and dispatch the window once it holds K frames.
-        Returns (window, frame index) of the frame."""
+    def stage(self, sel, info=None):
+        """Write this step's staging frame (rows `sel` take part, the
+        rest are inactive; `info` is the lane's own per-step data) and
+        dispatch the window once it holds K frames. Returns (window,
+        frame index) of the frame."""
         if not self.masked and self.stg_free is not None:
             self.stg_free.synchronize()
         win, k = self.win, len(self.masked)
-        self.fill(self.stg_np[k], sel)
+        self.fill(self.stg_np[k], sel, info)
         self.masked.append(sel.size < self.n)
         if len(self.masked) == self.pool._ss_k:
             self.dispatch()
         return win, k
 
+    def upload_aux(self):
+        """Whatever the window needs on the device beside its staging
+        frames (uploaded before the staging is free for the next
+        window)."""
+        return None
+
     def dispatch(self) -> None:
         """Run the buffered frames of the window on the device."""
         pool, win, K = self.pool, self.win, len(self.masked)
         stgK = self.stg[:K].to(pool.device, non_blocking=True)
+        aux = self.upload_aux()
         if pool._cuda:
             self.stg_free = torch.cuda.Event()
             self.stg_free.record()
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
-        pcmK = self.run(stgK, self.masked)
+        pcmK = self.run(stgK, self.masked, aux)
         if pool._cuda:
             t1.record()
             pool._win_events.append((K, t0, t1))
@@ -151,7 +170,7 @@ class _CeltLane(_Lane):
                                    device=pool.device),
         }
 
-    def fill(self, stg, sel) -> None:
+    def fill(self, stg, sel, info=None) -> None:
         g = self.group
         stg[:] = 0
         p = g.params
@@ -163,7 +182,7 @@ class _CeltLane(_Lane):
         stg[sel, _CELT_HDR:_CELT_HDR + 2 * NB_EBANDS] = g.bandE[sel]
         stg[sel, _CELT_HDR + 2 * NB_EBANDS:] = g.X[sel]
 
-    def run(self, stgK, masked):
+    def run(self, stgK, masked, aux=None):
         return celt_pool_superstep_T(
             self.state["decode_mem"], self.state["preemph"], stgK, LM=_LM,
             C=self.C, CC=self.pool.channels, masked=masked)
@@ -176,7 +195,11 @@ class _CeltLane(_Lane):
 
 class _SilkLane(_Lane):
     """Mono SILK streams at one internal rate fs, 20 ms frames
-    (models/silk_pool.py)."""
+    (models/silk_pool.py). In a pool that conceals (rfc_plc) every row
+    has a PLC tracker, the staging rows carry the conceal columns, and
+    the frame-sized conceal inputs of the window's lost rows collect
+    compact in `cx` (one row of rand then cng_exc per lost row, `cx_pos`
+    its bucket row, `cx_off` the row count at each frame's start)."""
 
     NB = 4
 
@@ -185,28 +208,116 @@ class _SilkLane(_Lane):
         self.fs = fs
         self.order = 16 if fs == 16 else 10
         self.frame = self.NB * 5 * fs
-        self.dummy = silk_pool.dummy_row(fs, self.NB)
+        self.plc = pool.rfc_plc
+        self.dummy = silk_pool.dummy_row(fs, self.NB, self.plc)
         super().__init__(pool, g, idxs,
-                         silk_pool.stage_width(self.frame, self.NB),
+                         silk_pool.stage_width(self.frame, self.NB, self.plc),
                          torch.int32)
         self.state = silk_pool.make_bucket(self.n, fs, pool.device)
+        self.glue: list[bool] = []
+        if self.plc:
+            self.trk_states = StateArray(self.n, PlcTrackerState)
+            self.trackers = [NativePlcTracker(fs, 20, st=v)
+                             for v in self.trk_states.views]
+            self.last_lost = self.trk_states.buf.view(np.int32)[
+                :, LAST_LOST_WORD]
+            self.cx_off = [0]
+            self._cx_alloc(64)
 
-    def fill(self, stg, sel) -> None:
+    def _cx_alloc(self, cap: int) -> None:
+        """(Re)allocate the compact conceal buffers for cap lost rows,
+        keeping the rows already collected."""
+        pin = self.pool._cuda
+        cx = torch.empty((cap, 2 * self.frame), dtype=torch.int32,
+                         pin_memory=pin)
+        pos = torch.empty(cap, dtype=torch.int64, pin_memory=pin)
+        used = self.cx_off[-1]
+        if used:
+            cx[:used] = self.cx[:used]
+            pos[:used] = self.cx_pos[:used]
+        self.cx, self.cx_pos = cx, pos
+        self.cx_np, self.cx_pos_np = cx.numpy(), pos.numpy()
+
+    def host_step(self, pos, ok, lost, fec):
+        """The host work of one step after the batched symbol decode of
+        the good rows (`ok`): recover or prepare the rows in `lost` (fec:
+        the rows among them that may take the next packet's LBRR copy;
+        pos: every row's packet index). Returns (sel, info): the rows
+        that take part in the frame, and for `fill` the conceal preps by
+        row and the glue flags of the decoded rows."""
+        g, pool = self.group, self.pool
+        decoded = ok.copy()
+        preps = {}
+        for r in np.nonzero(lost)[0].tolist():
+            p = None
+            if fec[r] and pos[r] + 1 < g.table.n_packets[r]:
+                # the LBRR copy in the NEXT packet, which stays unread
+                p = g.hosts[r].fec_frame(g.frame0(r, int(pos[r]) + 1),
+                                         self.fs, 20)
+            if p is None and pool.compat_ref:
+                # compat: the normal frame path over an empty bitstream
+                p = g.hosts[r].frame(b"", self.fs)
+            if p is not None:
+                g.put_row(r, p)
+                decoded[r] = True
+            elif self.plc:
+                preps[r] = self.trackers[r].conceal_prep()
+                g.hosts[r].st.LastGainIndex = 10   # silk_Decode on loss
+            else:
+                raise NotImplementedError(
+                    "a lost SILK packet in RFC mode needs rfc_plc=True")
+        rows = np.nonzero(decoded)[0]
+        glue = None
+        if self.plc:
+            # the post-loss transition (on the group buffers, in place)
+            # and the tracker update of every decoded or FEC row
+            good_frames(self.trk_states, rows, g.buf)
+            glue = self.last_lost[rows]
+            self.last_lost[rows] = 0
+        return np.nonzero(decoded | lost)[0], (rows, preps, glue)
+
+    def fill(self, stg, sel, info=None) -> None:
         b, F = self.group.buf, self.frame
+        rows, preps, glue = info if info is not None else (sel, {}, None)
         p = F + 32 + 5 * self.NB
         stg[:] = self.dummy
-        stg[sel, :F] = b.exc[sel]
-        stg[sel, F:F + 32] = b.A[sel].reshape(-1, 32)
-        stg[sel, F + 32:p] = b.B[sel].reshape(-1, 5 * self.NB)
+        stg[rows, :F] = b.exc[rows]
+        stg[rows, F:F + 32] = b.A[rows].reshape(-1, 32)
+        stg[rows, F + 32:p] = b.B[rows].reshape(-1, 5 * self.NB)
         for j, col in enumerate((b.gains, b.inv, b.lag, b.adj)):
-            stg[sel, p + 4 * j:p + 4 * j + 4] = col[sel]
-        stg[sel, p + 16:p + 28] = b.flags[sel]    # voiced, rewhiten, match
+            stg[rows, p + 4 * j:p + 4 * j + 4] = col[rows]
+        stg[rows, p + 16:p + 28] = b.flags[rows]  # voiced, rewhiten, match
         stg[sel, -1] = 1                          # active
+        if not self.plc:
+            return
+        q = p + 7 * self.NB
+        stg[rows, q] = glue
+        self.glue.append(bool(glue.any()))
+        used = self.cx_off[-1]
+        if used + len(preps) > len(self.cx_np):
+            self._cx_alloc(2 * (used + len(preps)))
+        for r, prep in preps.items():
+            stg[r, q:q + silk_pool.PLC_COLS] = silk_pool.conceal_cols(prep)
+            self.cx_np[used, :F] = prep["rand"]
+            self.cx_np[used, F:] = prep["cng_exc"]
+            self.cx_pos_np[used] = r
+            used += 1
+        self.cx_off.append(used)
 
-    def run(self, stgK, masked):
+    def upload_aux(self):
+        if not self.plc:
+            return None
+        offs, used = self.cx_off, self.cx_off[-1]
+        self.cx_off = [0]
+        dev = self.pool.device
+        return (offs, self.cx_pos[:used].to(dev, non_blocking=True),
+                self.cx[:used].to(dev, non_blocking=True))
+
+    def run(self, stgK, masked, aux=None):
+        glue, self.glue = self.glue, []
         return silk_pool.silk_pool_superstep(
             self.state, stgK, fs=self.fs, nb=self.NB, order=self.order,
-            masked=masked)
+            masked=masked, glue=glue, conceal=aux)
 
     @staticmethod
     def frames(frame, sel):
@@ -229,8 +340,8 @@ class StreamPool:
             raise ValueError("channels must be 1 or 2")
         if not native:
             raise _todo("the Python symbol phase (native=False)", "12")
-        if rfc_plc:
-            raise _todo("packet-loss concealment (rfc_plc)", "7 and 9")
+        if rfc_plc and compat_ref:
+            raise ValueError("rfc_plc requires compat_ref=False")
         if output != "host":
             raise _todo("device-resident output", "12")
         if out_fs != 48000:
@@ -249,9 +360,12 @@ class StreamPool:
             raise ValueError("StreamPool needs at least one source")
         self.channels = channels
         self.compat_ref = compat_ref
+        self.rfc_plc = rfc_plc
         kinds = [self._check_source(i, s) for i, s in enumerate(self.streams)]
         if len({k[0] for k in kinds}) > 1:
             raise _todo("a pool that mixes CELT and SILK streams", "12")
+        if rfc_plc and kinds[0][0] == "celt":
+            raise _todo("CELT packet-loss concealment (rfc_plc)", "7")
         self._ss_k = int(superstep_k)
         self.positions = np.zeros(self.n, dtype=np.int64)
         self.pcm_out = [[] for _ in range(self.n)]
@@ -263,8 +377,6 @@ class StreamPool:
                 by_fs[fs].append(i)
             self._lanes = [_SilkLane(self, fs, idxs)
                            for fs, idxs in sorted(by_fs.items())]
-        self._silk = {i for lane in self._lanes
-                      if isinstance(lane, _SilkLane) for i in lane.idxs}
         # CUDA events around the frame steps of the latest windows
         self._win_events = collections.deque(maxlen=1024)
         # device work of step t is fetched at the end of step t+depth, so
@@ -338,15 +450,18 @@ class StreamPool:
         return ("celt",)
 
     # ------------------------------------------------------------ steps
-    def step(self, lost=None) -> bool:
+    def step(self, lost=None, fec=None) -> bool:
         """Decode one frame of every stream with a packet left. lost:
         stream indices whose next packet was lost in transit: it is
-        consumed, its PCM is silence and the stream's state is untouched
-        (CELT streams; a lost SILK packet raises). Returns False once
-        every stream is exhausted."""
-        lost = set(lost or ())
-        if lost & self._silk:
-            raise _todo("SILK packet loss", "9")
+        consumed but not decoded. A lost CELT packet gives silence and
+        leaves the stream's state untouched; a lost SILK packet is
+        decoded over an empty bitstream (compat mode) or concealed
+        (rfc_plc). fec: the subset of lost whose frame the NEXT packet's
+        in-band SILK LBRR copy should reconstruct when it has one (that
+        packet stays unread: the next step decodes it). Returns False
+        once every stream is exhausted."""
+        lost = np.isin(np.arange(self.n), list(lost or ()))
+        fec = np.isin(np.arange(self.n), list(fec or ())) & lost
         parts = []
         for lane in self._lanes:
             g, idxs = lane.group, lane.idxs
@@ -354,18 +469,20 @@ class StreamPool:
             live = pos < g.table.n_packets
             if not live.any():
                 continue
-            active = live.copy()
-            if lost:
-                active &= ~np.isin(idxs, list(lost))
+            gone = live & lost[idxs]
+            active = live & ~gone
             ok = g.decode(pos, active) if active.any() else active
-            sel = np.nonzero(ok)[0]
+            sel, info = np.nonzero(ok)[0], None
+            if isinstance(lane, _SilkLane) and (lane.plc or gone.any()):
+                sel, info = lane.host_step(pos, ok, gone, fec[idxs])
+                gone[sel] = False
             rows = np.nonzero(live)[0]
-            part = dict(lane=lane, sel=sel, lost=np.nonzero(live & ~ok)[0],
+            part = dict(lane=lane, sel=sel, lost=np.nonzero(gone)[0],
                         rows=rows, disc=g.table.disc[rows, pos[rows]],
                         trim=g.table.trim[rows, pos[rows]], win=None, k=0)
             self.positions[idxs[live]] += 1
             if sel.size:
-                part["win"], part["k"] = lane.stage(sel)
+                part["win"], part["k"] = lane.stage(sel, info)
             parts.append(part)
         if not parts:
             self._flush()
@@ -413,20 +530,24 @@ class StreamPool:
             out.append((k, t0.elapsed_time(t1)))
         return out
 
-    def run(self, loss=None):
+    def run(self, loss=None, fec=False):
         """Decode everything; returns a list of (n_i, channels) int16.
         loss: optional callable (stream_idx, packet_idx) -> bool marking
-        packets lost in transit (CELT pools; SILK loss raises)."""
-        if loss is not None and self._silk:
-            raise _todo("SILK packet loss", "9")
+        packets lost in transit (see step). fec=True reconstructs a lost
+        SILK frame from the next packet's in-band LBRR copy when that
+        packet arrived (exists and was not itself lost)."""
         while True:
-            lost = set()
+            lost, fec_set = set(), set()
             if loss is not None:
                 for i in range(self.n):
                     k = int(self.positions[i])
-                    if k < len(self.streams[i].jobs) and loss(i, k):
-                        lost.add(i)
-            if not self.step(lost):
+                    n = len(self.streams[i].jobs)
+                    if k >= n or not loss(i, k):
+                        continue
+                    lost.add(i)
+                    if fec and k + 1 < n and not loss(i, k + 1):
+                        fec_set.add(i)
+            if not self.step(lost, fec_set):
                 break
         return self.collected()
 

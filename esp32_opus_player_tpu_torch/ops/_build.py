@@ -117,6 +117,12 @@ def _bind(so):
     so.silk_core.restype = i
     so.silk_core.argtypes = [p, ll, p, ll, p, p, p, p, p, p, p, i, i, i, i,
                              p]
+    so.silk_plc.restype = i
+    so.silk_plc.argtypes = [p, ll, p, ll, p, p, p, p, p, p, p, i, i, i, i, p]
+    so.silk_cng.restype = i
+    so.silk_cng.argtypes = [p, ll, p, ll, p, p, p, p, p, p, i, i, i, p]
+    so.celt_comb_deemph.restype = i
+    so.celt_comb_deemph.argtypes = [p, i, i, i, p, p, p, p, p, p, p]
     so.otpu_cuda_error_string.restype = ctypes.c_char_p
     so.otpu_cuda_error_string.argtypes = [i]
     return so

@@ -1,4 +1,5 @@
-"""The CELT comb postfilter of one frame (kernel K2) and its plain twin.
+"""The CELT comb postfilter of one frame (kernel K2), the comb fused with
+the deemphasis (kernel K4), and their plain twins.
 
 `comb_filter_step_T(bufT, start, N, comb1, comb2)` runs both
 comb_filter calls of a CELT frame (src/celt.cpp:2385-2389; comb_filter
@@ -11,6 +12,14 @@ launches csrc/celt_comb.cu; on a CPU tensor it runs the twin
 `comb_filter_step_T_ref`, the port of jax_synthesis.comb_filter_batch's
 chunk walk.
 
+`comb_deemph_step_T(bufT, start, N, comb1, comb2, mem)` does in one
+launch what `comb_filter_step_T` and then `deemphasis_T` over the rows it
+wrote do for one channel at downsample 1: it replaces
+pallas_comb.py::comb_deemph_step_T (csrc/celt_comb_deemph.cu; the twin
+is the composition of the two twins). As in the JAX package, the frame
+step (synthesis_T.celt_synth_step_dual_T) runs K2 and K3 apart and does
+not call it.
+
 Lags are clamped to [15, 1024] and tapsets to [0, 2] (the decoder never
 produces others; the clamp keeps every read inside the buffer).
 """
@@ -21,6 +30,7 @@ import functools
 import numpy as np
 import torch
 
+from .deemph import deemphasis_T_ref
 from .torch_synthesis import (COMBFILTER_MINPERIOD, I32, MAX_PERIOD,
                               OVERLAP, SHORT_MDCT_SIZE, SIG_SAT, WINDOW,
                               const, mult16_16_p15, mult16_16_q15, smul)
@@ -106,6 +116,20 @@ def comb_filter_step_T_ref(bufT, start: int, N: int, comb1, comb2):
     return bufT
 
 
+def _cuda_args(what: str, bufT, comb1, comb2):
+    """The checks both kernels share; returns the packed (12, B) params."""
+    if bufT.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {bufT.device}")
+    if bufT.dtype != I32 or bufT.dim() != 2 or not bufT.is_contiguous():
+        raise ValueError(f"{what}: bufT must be a contiguous 2-D int32 "
+                         f"tensor")
+    par = torch.stack([*comb1, *comb2]).to(I32).contiguous()
+    if par.shape != (12, bufT.shape[1]) or par.device != bufT.device:
+        raise ValueError(f"{what}: params must be 12 x (B,) on the "
+                         f"buffer's device")
+    return par
+
+
 def comb_filter_step_T(bufT, start: int, N: int, comb1, comb2):
     """K2 wrapper, in place on bufT (L, B) int32; returns bufT. CPU
     tensors take the twin; CUDA tensors launch csrc/celt_comb.cu (never
@@ -115,17 +139,8 @@ def comb_filter_step_T(bufT, start: int, N: int, comb1, comb2):
     if bufT.device.type == "cpu":
         return comb_filter_step_T_ref(bufT, start, N, comb1, comb2)
     from .. import _build
-    if bufT.device.type != "cuda":
-        raise ValueError(f"comb_filter_step_T: unsupported device "
-                         f"{bufT.device}")
-    if bufT.dtype != I32 or bufT.dim() != 2 or not bufT.is_contiguous():
-        raise ValueError("comb_filter_step_T: bufT must be a contiguous "
-                         "2-D int32 tensor")
+    par = _cuda_args("comb_filter_step_T", bufT, comb1, comb2)
     B = bufT.shape[1]
-    par = torch.stack([*comb1, *comb2]).to(I32).contiguous()
-    if par.shape != (12, B) or par.device != bufT.device:
-        raise ValueError("comb_filter_step_T: params must be 12 x (B,) on "
-                         "the buffer's device")
     gains, f_tab = _tables(bufT.device)
     with torch.cuda.device(bufT.device):
         err = _build.lib().celt_comb_step(
@@ -137,3 +152,44 @@ def comb_filter_step_T(bufT, start: int, N: int, comb1, comb2):
 
 
 comb_filter_step_T.launches = 0
+
+
+def comb_deemph_step_T_ref(bufT, start: int, N: int, comb1, comb2, mem):
+    """Plain torch twin of K4: K2's twin, then K3's over the rows it
+    wrote (in place on bufT)."""
+    comb_filter_step_T_ref(bufT, start, N, comb1, comb2)
+    pcm, mem2 = deemphasis_T_ref(bufT[None, start:start + N], mem[:, None])
+    return bufT, pcm[0], mem2[:, 0]
+
+
+def comb_deemph_step_T(bufT, start: int, N: int, comb1, comb2, mem):
+    """K4 wrapper: the comb postfilter in place on bufT (L, B) int32,
+    then the deemphasis of rows [start, start+N) with the channel's
+    memory mem (B,) int32. Returns (bufT, pcm (N, B) int16, mem' (B,));
+    mem is not written. CPU tensors take the twin; CUDA tensors launch
+    csrc/celt_comb_deemph.cu (never the twin)."""
+    if start < MAX_PERIOD + 2 or start + N > bufT.shape[0]:
+        raise ValueError("comb_deemph_step_T: rows out of range")
+    if bufT.device.type == "cpu":
+        return comb_deemph_step_T_ref(bufT, start, N, comb1, comb2, mem)
+    from .. import _build
+    par = _cuda_args("comb_deemph_step_T", bufT, comb1, comb2)
+    B = bufT.shape[1]
+    mem = mem.to(I32).contiguous()
+    if mem.shape != (B,) or mem.device != bufT.device:
+        raise ValueError("comb_deemph_step_T: mem must be (B,) on the "
+                         "buffer's device")
+    gains, f_tab = _tables(bufT.device)
+    pcm = torch.empty((N, B), dtype=torch.int16, device=bufT.device)
+    mem2 = torch.empty_like(mem)
+    with torch.cuda.device(bufT.device):
+        err = _build.lib().celt_comb_deemph(
+            bufT.data_ptr(), B, start, N, par.data_ptr(), f_tab.data_ptr(),
+            gains.data_ptr(), mem.data_ptr(), mem2.data_ptr(),
+            pcm.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "celt_comb_deemph")
+    comb_deemph_step_T.launches += 1
+    return bufT, pcm, mem2
+
+
+comb_deemph_step_T.launches = 0

@@ -33,7 +33,7 @@ def _rows(t, width: int, what: str):
     if t.stride(-1) != 1:
         t = t.contiguous()
     if t.dim() != 2 or t.shape[1] < width:
-        raise ValueError(f"silk_core: {what} must be (B, >= {width})")
+        raise ValueError(f"{what} must be (B, >= {width}) int32")
     return t
 
 

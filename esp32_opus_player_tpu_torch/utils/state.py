@@ -6,10 +6,10 @@ transposed layout, (CC, 2048+120, B) int32, and the deemphasis memory,
 
 Mono SILK: one bucket per internal rate fs, the JAX pool's
 `silk_buckets[fs]` dict, one row per stream: outBuf (B, 40 fs), sLPC
-(B, 16), sIIR (B, 6), sFIR (B, >= 8), delay (B, fs) and sMid (B, 2), all
-int32. The JAX bucket also carries the loss-concealment state (cng,
-conc_e, conc_s), which the port does not take yet (ROADMAP.md queue A
-item 9): it must be zero, as a run without loss leaves it.
+(B, 16), sIIR (B, 6), sFIR (B, >= 8), delay (B, fs), sMid (B, 2) and the
+loss-concealment state: cng (B, 16), the comfort-noise synthesis state,
+and conc_e, conc_s (B,), the last concealed frame's energy and its
+shift. All int32. The host's PLC trackers are not part of a bucket.
 """
 from __future__ import annotations
 
@@ -18,8 +18,8 @@ import torch
 
 from ..ops.celt.torch_synthesis import DECODE_BUFFER_SIZE, OVERLAP
 
-SILK_KEYS = ("outBuf", "sLPC", "sIIR", "sFIR", "delay", "sMid")
-_SILK_PLC_KEYS = ("cng", "conc_e", "conc_s")
+SILK_KEYS = ("outBuf", "sLPC", "cng", "conc_e", "conc_s", "sIIR", "sFIR",
+             "delay", "sMid")
 
 
 def _i32(a) -> np.ndarray:
@@ -55,14 +55,11 @@ def _silk_from_jax(bucket: dict, device, rows) -> dict:
     missing = [k for k in SILK_KEYS if k not in arr]
     if missing:
         raise ValueError(f"SILK bucket lacks {missing}")
-    if any(arr[k].any() for k in _SILK_PLC_KEYS if k in arr):
-        raise NotImplementedError(
-            "SILK loss-concealment state is not ported to torch yet "
-            "(ROADMAP.md queue A item 9)")
     B, width = arr["outBuf"].shape
     fs = width // 40
-    want = dict(outBuf=(B, 40 * fs), sLPC=(B, 16), sIIR=(B, 6),
-                delay=(B, fs), sMid=(B, 2))
+    want = dict(outBuf=(B, 40 * fs), sLPC=(B, 16), cng=(B, 16),
+                conc_e=(B,), conc_s=(B,), sIIR=(B, 6), delay=(B, fs),
+                sMid=(B, 2))
     bad = {k: arr[k].shape for k, s in want.items() if arr[k].shape != s}
     if bad or fs not in (8, 12, 16) or arr["sFIR"].shape[0] != B \
             or arr["sFIR"].shape[1] < 8:

@@ -72,6 +72,24 @@ def test_deemph_kernel_matches_twin(dev, CC, downsample):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("N", [960, 120])
+def test_comb_deemph_kernel_matches_twin(dev, N):
+    """K4: one launch against K2's twin then K3's."""
+    from esp32_opus_player_tpu_torch.ops.celt.comb import (
+        comb_deemph_step_T, comb_deemph_step_T_ref)
+    rng = np.random.default_rng(N + 1)
+    buf = t32(rng.integers(-(1 << 26), 1 << 26, (DBS + OV, B)), dev)
+    c1 = tuple(t32(v, dev) for v in comb_params(rng, B))
+    c2 = tuple(t32(v, dev) for v in comb_params(rng, B))
+    mem = t32(rng.integers(-(1 << 20), 1 << 20, B), dev)
+    want = comb_deemph_step_T_ref(buf.clone(), DBS - N, N, c1, c2, mem)
+    n = comb_deemph_step_T.launches
+    got = comb_deemph_step_T(buf, DBS - N, N, c1, c2, mem)
+    assert comb_deemph_step_T.launches == n + 1
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def _golden(name):
     return np.fromfile(ROOT / "golden" / f"{name}.pcm",
                        dtype=np.int16).reshape(-1, 2)
@@ -180,3 +198,81 @@ def test_silk_pool_on_card_matches_golden(dev, names, n, K):
         gold = _golden(names[i % len(names)])
         assert len(out) > 90000, i
         assert np.array_equal(np.repeat(out, 2, axis=1), gold[:len(out)]), i
+
+
+# ---- lossy mono SILK: K8, K9 and the concealing pool --------------------
+
+PLC_SETS = [(16, 4, 16), (12, 4, 10), (8, 4, 10), (16, 2, 16)]
+
+
+@pytest.mark.parametrize("rows", [B, 5])
+@pytest.mark.parametrize("fs,nb,order", PLC_SETS)
+def test_plc_conceal_kernel_matches_plain(dev, fs, nb, order, rows):
+    """K8 at the pool's width and at a few rows (it runs at every bucket
+    size), rows 0 and 1 at the lag edges 2 fs and 18 fs."""
+    from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import (
+        silk_plc_conceal)
+    from esp32_opus_player_tpu_torch.ops.silk.torch_plc import (
+        silk_plc_conceal_frame_xla)
+    from torch_port_util import silk_plc_inputs
+    rng = np.random.default_rng(fs * 10 + nb + rows)
+    args = tuple(t32(a, dev) for a in silk_plc_inputs(rng, rows, fs, nb,
+                                                      order))
+    kw = dict(fs_khz=fs, nb_subfr=nb, order=order)
+    n = silk_plc_conceal.launches
+    got = silk_plc_conceal(*args, **kw)
+    assert silk_plc_conceal.launches == n + 1
+    want = silk_plc_conceal_frame_xla(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("frame,order", [(320, 16), (240, 10), (160, 10),
+                                         (160, 16)])
+def test_cng_kernel_matches_plain(dev, frame, order):
+    """K9 with a mask of both values, the state over the whole int32
+    range, and the inputs as strided views (as the lossy frame hands
+    them over)."""
+    from esp32_opus_player_tpu_torch.ops.silk.cng_kernel import cng_add
+    from esp32_opus_player_tpu_torch.ops.silk.torch_plc import cng_add_xla
+    rng = np.random.default_rng(frame + order)
+    both = t32(rng.integers(-(1 << 16), 1 << 16, (B, 2 * frame)), dev)
+    xq = both[:, :frame].clamp(-32768, 32767)
+    exc = both[:, frame:]
+    A = t32(rng.integers(-(1 << 12), 1 << 12, (B, 16)), dev)
+    gain = t32(rng.integers(1 << 8, 1 << 14, B), dev)
+    st0 = t32(rng.integers(-2 ** 31, 2 ** 31, (B, 16)), dev)
+    mask = torch.as_tensor(rng.integers(0, 2, B).astype(bool), device=dev)
+    n = cng_add.launches
+    got = cng_add(xq, exc, A, gain, st0, mask, frame=frame, order=order)
+    assert cng_add.launches == n + 1
+    want = cng_add_xla(xq, exc, A, gain, st0, mask, frame=frame,
+                       order=order)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kw,fec", [
+    (dict(compat_ref=False, rfc_plc=True), False),
+    (dict(compat_ref=False, rfc_plc=True), True),
+    (dict(compat_ref=True), True)])
+def test_lossy_silk_pool_card_matches_cpu(dev, kw, fec):
+    """The concealing pool (a 10th of the rows lost on every step) on the
+    card, kernels K8 and K9 launched, against the same pool on the CPU."""
+    from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
+    from esp32_opus_player_tpu_torch.ops.silk.cng_kernel import cng_add
+    from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import (
+        silk_plc_conceal)
+    names = ("silk_wb_mono_20ms", "silk_wb_fec_mono_20ms",
+             "silk_nb_mono_20ms")
+    src = [ROOT / "fixtures" / f"{names[i % 3]}.opus" for i in range(30)]
+    loss = lambda i, k: i % 10 == k % 10
+    n8, n9 = silk_plc_conceal.launches, cng_add.launches
+    card = StreamPool(src, superstep_k=4, device=dev, **kw).run(loss=loss,
+                                                                fec=fec)
+    used = (silk_plc_conceal.launches - n8, cng_add.launches - n9)
+    assert (min(used) > 0) == ("rfc_plc" in kw), used
+    cpu = StreamPool(src, superstep_k=4, device="cpu", **kw).run(loss=loss,
+                                                                 fec=fec)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        assert np.array_equal(a, b), i

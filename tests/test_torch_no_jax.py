@@ -1,7 +1,8 @@
 """The port stands alone: a fresh interpreter decodes a CELT and a SILK
-fixture through it with neither JAX nor the JAX package loaded, and no
-source file of the port (nor chip_smoke.py, nor the port's profiler)
-imports either."""
+fixture through it, and a SILK fixture with lost packets (concealment and
+in-band FEC), with neither JAX nor the JAX package loaded, and no source
+file of the port (nor chip_smoke.py, nor the port's profiler) imports
+either. A native host library that fails to load raises at parse time."""
 import pathlib
 import re
 import subprocess
@@ -20,6 +21,14 @@ for src in sys.argv[1:]:
         pool.step()
     out = pool.collected()[0]
     assert out.shape[1] == 1 and len(out) > 960, (src, out.shape)
+lossy = StreamPool([sys.argv[-1]], compat_ref=False, rfc_plc=True,
+                   superstep_k=2, device="cpu")
+while lossy.positions[0] < 7:
+    k = int(lossy.positions[0])
+    lossy.step(lost={0} if k in (2, 3, 5) else None,
+               fec={0} if k == 5 else None)
+out = lossy.collected()[0]
+assert len(out) > 6 * 960 - 400 and out[3 * 960:4 * 960].any(), out.shape
 print(sorted(m for m in sys.modules if m.startswith("jax")
              or m.split(".")[0] == "esp32_opus_player_tpu"))
 """
@@ -27,7 +36,8 @@ print(sorted(m for m in sys.modules if m.startswith("jax")
 
 def test_port_decodes_without_importing_jax():
     srcs = [ROOT / "tests" / "fixtures" / f"{n}.opus"
-            for n in ("celt_fb_mono_20ms", "silk_wb_mono_20ms")]
+            for n in ("celt_fb_mono_20ms", "silk_wb_mono_20ms",
+                      "silk_wb_fec_mono_20ms")]
     res = subprocess.run([sys.executable, "-c", _PROBE, *map(str, srcs)],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
@@ -41,8 +51,27 @@ def test_port_sources_never_import_jax():
         r"^\s*(import|from)\s+esp32_opus_player_tpu(\.|\s|$)", re.M)
     files = list(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_pool.py"]
-    assert len(files) > 20
+    assert len(files) > 25
+    names = {p.name for p in files}
+    assert {"torch_plc.py", "plc_kernel.py", "cng_kernel.py",
+            "batch_silk.py", "comb.py"} <= names
     for p in files:
         text = p.read_text()
         assert not jax.search(text), p
         assert not jax_pkg.search(text), p
+
+
+def test_failed_native_load_raises_at_parse_time(monkeypatch):
+    """The page scanner does not hide a native library that fails to
+    build or load behind a Python fallback: parsing raises the error."""
+    import pytest
+    from esp32_opus_player_tpu_torch.host import native, opusfile
+
+    def broken():
+        raise OSError("no native library")
+
+    monkeypatch.setattr(native, "load", broken)
+    data = (ROOT / "tests" / "fixtures" / "silk_wb_mono_20ms.opus"
+            ).read_bytes()
+    with pytest.raises(OSError, match="no native library"):
+        opusfile.parse_stream(data)

@@ -89,6 +89,27 @@ def silk_core_inputs(rng, B, fs, nb):
     return (ob, sl, exc, A, Bq, gains, inv, lag, voiced, rw, adj, match)
 
 
+def silk_plc_inputs(rng, B, fs, nb, order):
+    """Random inputs of one concealed SILK frame (the 8 arguments of
+    silk_plc_conceal_frame as numpy), drawn as tests/test_device_batch.py
+    draws them; B4 and lag4 keep 4 rows whatever nb is. Edge rows: row 0
+    at the smallest conceal lag (2 * fs), row 1 at the largest
+    (18 * fs)."""
+    i32 = np.int32
+    frame, lm = nb * 5 * fs, 20 * fs
+    ob = rng.integers(-30000, 30000, (B, lm + frame)).astype(i32)
+    sl = rng.integers(-(1 << 20), 1 << 20, (B, 16)).astype(i32)
+    rand = rng.integers(-(1 << 14), 1 << 14, (B, frame)).astype(i32)
+    A = rng.integers(-(1 << 12), 1 << 12, (B, order)).astype(i32)
+    B4 = rng.integers(-(1 << 12), 1 << 12, (B, 4, 5)).astype(i32)
+    lag4 = rng.integers(2 * fs, 18 * fs + 1, (B, 4)).astype(i32)
+    inv = rng.integers(1 << 24, 1 << 30, B).astype(i32)
+    pg = rng.integers(1 << 10, 1 << 16, B).astype(i32)
+    lag4[0] = 2 * fs
+    lag4[1] = 18 * fs
+    return (ob, sl, rand, A, B4, lag4, inv, pg)
+
+
 def port_synth_step(dm, pre, X, bandE, start, end, c1, c2, tr, **kw):
     """The port's transposed frame step on row-layout numpy inputs (as
     `synth_inputs` draws them); returns row-layout numpy (pcm,

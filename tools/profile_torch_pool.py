@@ -3,7 +3,9 @@
 Runs the pools of chip_smoke.py (2048 mono CELT streams in K = 64
 windows, 1024 stereo CELT streams one frame at a time, 2048 mono WB
 SILK streams in K = 64 windows, 48 mono NB/MB/WB SILK streams in K = 3
-windows, three buckets of 16 rows) on the card, each twice in one
+windows, three buckets of 16 rows, and the 2048 WB streams again in RFC
+mode with concealment, a tenth of the rows lost on every step, with
+in-band FEC) on the card, each twice in one
 process: first plain, for the wall time of run() and the device time of
 its windows (CUDA events), then under torch.profiler, for the card's
 busy time (device time of every kernel and copy), the kernel launches
@@ -12,7 +14,7 @@ so kernel builds and lazy tables stay out of both. Run from the
 repository root:
 
     python3 tools/profile_torch_pool.py [mono] [stereo] [silk] [silk_small]
-        [--out DIR]
+        [silk_loss] [--out DIR]
 
 Prints one JSON line per pool; with --out, also writes the profiler's
 per-kernel table for each pool to DIR/profile_<pool>.txt.
@@ -25,7 +27,7 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# pool: (fixtures, channels, streams, superstep_k)
+# pool: (fixtures, channels, streams, superstep_k[, lossy])
 POOLS = {
     "mono": (("celt_fb_mono_20ms", "celt_fb_mono_drums_20ms"), 1, 2048, 64),
     "stereo": (("celt_fb_stereo_20ms", "celt_fb_stereo_drums_20ms"), 2,
@@ -33,20 +35,28 @@ POOLS = {
     "silk": (("silk_wb_mono_20ms", "silk_wb_fec_mono_20ms"), 1, 2048, 64),
     "silk_small": (("silk_nb_mono_20ms", "silk_mb_mono_20ms",
                     "silk_wb_mono_20ms"), 1, 48, 3),
+    "silk_loss": (("silk_wb_mono_20ms", "silk_wb_fec_mono_20ms"), 1, 2048,
+                  64, True),
 }
 
 
-def run_pool(names, channels: int, n: int, K: int):
+def run_pool(names, channels: int, n: int, K: int, lossy: bool = False):
     """One pool of n streams (names[i % len(names)]) through
-    StreamPool.run(); returns (pool, wall s of run)."""
+    StreamPool.run(); returns (pool, wall s of run). lossy: RFC mode
+    with concealment, stream i losing packet k where i % 10 == k % 10,
+    with in-band FEC."""
     import torch
     from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
     paths = [ROOT / "tests" / "fixtures" / f"{m}.opus" for m in names]
+    kw = dict(compat_ref=False, rfc_plc=True) if lossy else {}
     pool = StreamPool([paths[i % len(paths)] for i in range(n)],
-                      channels=channels, superstep_k=K, device="cuda")
+                      channels=channels, superstep_k=K, device="cuda", **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pool.run()
+    if lossy:
+        pool.run(loss=lambda i, k: i % 10 == k % 10, fec=True)
+    else:
+        pool.run()
     torch.cuda.synchronize()
     return pool, time.perf_counter() - t0
 
@@ -108,8 +118,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     card = card.strip().splitlines()[0]
-    for names, channels, _, _ in POOLS.values():  # builds, lazy tables
-        run_pool(names, channels, 4, 3)
+    for names, channels, _, _, *lossy in POOLS.values():  # builds, tables
+        run_pool(names, channels, 4, 3, *lossy)
     for name in args.pools:
         print(json.dumps({"card": card, **profile(name, args.out)}),
               flush=True)
