@@ -12,22 +12,27 @@ Phases (any failure exits non-zero; there is no CPU path):
    paths' shapes, bit for bit (tolerance 0: int32 fixed point), and both
    timed: as device time (one call captured in a CUDA graph, replayed)
    and as eager stream time; beside each, its bound (the least time the
-   card could take for the same work, from this run's inputs);
+   card could take for the same work, from this run's inputs). The two
+   tiled kernels, K2 and K7, are first held at widths that leave their
+   tiles ragged and at the lag edges, K7 also on misaligned column
+   slices;
 4. the CELT path through StreamPool.run(): a mono pool of 2048 streams in
    K = 64 windows and a stereo pool of 1024 streams per frame, every
-   stream bit-equal to tests/golden, with K1-K3's launch counts from
-   that run; then a small CELT pool with packet loss, card against CPU;
+   stream bit-equal to tests/golden; then a small CELT pool with packet
+   loss, card against CPU. Every wrapper's launch count is set to 0
+   once, just before the first pool, and read once after the last pool
+   of phase 6; each pool prints the launches it made;
 5. the mono SILK path: a 2048-stream WB pool in K = 64 windows (one
    device bucket of 2048 rows: kernels K7 and K6) and a 48-stream pool
    over the NB, MB and WB fixtures in K = 3 windows (buckets of 16 rows:
    K5 and K6), every stream bit-equal to tests/golden and the small pool
-   equal between card and CPU, with K5-K7's launch counts from that run;
+   equal between card and CPU;
 6. the lossy mono SILK path: 2048 WB streams in K = 64 windows, RFC mode
    with concealment (rfc_plc), a tenth of the rows lost on every step,
    once without and once with in-band FEC; no golden exists for RFC
    concealment, so the 20 distinct (fixture, loss phase) streams run
    first as a CPU pool and every card stream is held to its twin among
-   them; K8's and K9's launch counts come from these runs. Then compat
+   them (K7, K6, K8 and K9 run here). Then compat
    loss (every 7th packet) on the card against the reference's
    tests/golden/silk_wb_mono_20ms.loss7.pcm;
 7. one JSON line of per-kernel results (all nine kernels; K4, the fused
@@ -297,27 +302,42 @@ def check_celt_kernels(dev, card, sm_hz):
            f"B={B}", res["K1"])
 
     # K2: lags 15..1024, both regions of a 960-sample frame
-    def params():
-        v = [rng.integers(15, 1025, B), rng.integers(15, 1025, B),
-             rng.integers(0, 32768, B), rng.integers(0, 32768, B),
-             rng.integers(0, 3, B), rng.integers(0, 3, B)]
-        v[0][:8] = v[1][:8] = 15
+    def params(Bn, lag):
+        v = [rng.integers(15, 1025, Bn), rng.integers(15, 1025, Bn),
+             rng.integers(0, 32768, Bn), rng.integers(0, 32768, Bn),
+             rng.integers(0, 3, Bn), rng.integers(0, 3, Bn)]
+        if lag is None:
+            v[0][:8] = v[1][:8] = 15
+        else:
+            v[0][:] = v[1][:] = lag
         v[2][8:16] = v[3][8:16] = 0            # no-op rows
         v[3][16:24] = 0                        # g1 = 0 rows
         return tuple(t32(a) for a in v)
-    c1, c2 = params(), params()
-    buf = t32(rng.integers(-(1 << 26), 1 << 26, (DBS + OV, B)))
-    want = comb_filter_step_T_ref(buf.clone(), DBS - 960, 960, c1, c2)
-    got = comb_filter_step_T(buf.clone(), DBS - 960, 960, c1, c2)
-    if not same([got], [want]):
-        raise SystemExit(f"K2 differs from its plain version: "
-                         f"{max_err(got, want)}")
+
+    def k2_case(Bn, lag=None):
+        c1, c2 = params(Bn, lag), params(Bn, lag)
+        buf = t32(rng.integers(-(1 << 26), 1 << 26, (DBS + OV, Bn)))
+        want = comb_filter_step_T_ref(buf.clone(), DBS - 960, 960, c1, c2)
+        got = comb_filter_step_T(buf.clone(), DBS - 960, 960, c1, c2)
+        if not same([got], [want]):
+            raise SystemExit(f"K2 (B {Bn}, lags {lag}) differs from its "
+                             f"plain version: {max_err(got, want)}")
+        return buf, c1, c2, max_err(got, want)
+
+    # widths around the 8-stream tile, every lag at either edge, then the
+    # timed shape
+    for Bn in (1, 7, 9, 2047):
+        k2_case(Bn)
+    for lag in (15, 1024):
+        k2_case(B, lag)
+    buf, c1, c2, err = k2_case(B)
     work = buf.clone()
-    res["K2"] = dict(max_abs_err=max_err(got, want), **timings(
+    res["K2"] = dict(max_abs_err=err, **timings(
         lambda: comb_filter_step_T(work, DBS - 960, 960, c1, c2),
         lambda: comb_filter_step_T_ref(work, DBS - 960, 960, c1, c2), 20),
         **bound(*k2_work(960, c1, c2), sm_hz))
-    report(card, f"K2 comb_filter_step_T, N=960, B={B}", res["K2"])
+    report(card, f"K2 comb_filter_step_T, also B in (1, 7, 9, 2047) and "
+           f"all lags 15 / 1024; timed: N=960, B={B}", res["K2"])
 
     # K3: CC 1 (B = 2048, the mono pool) and CC 2 (B = 1024, stereo)
     err = 0
@@ -394,26 +414,49 @@ def check_silk_kernels(dev, card, sm_hz):
         return torch.as_tensor(np.asarray(a), device=dev)
 
     res = {}
-    # K7: (16, 4, 16) timed at B = 2048; the other sets for equality
-    err = 0
-    for fs, nb, order in [(16, 4, 16), (12, 4, 16), (8, 4, 10),
-                          (16, 2, 16)]:
-        args = silk_core_inputs(rng, B, fs, nb)
-        targs = tuple(dev_t(a) for a in args)
+    # K7: widths around a block's 16 streams, every lag at either edge,
+    # outBuf and exc as misaligned column slices of wider tensors; then
+    # all four sets at B = 2048, (16, 4, 16) timed
+    def k7_case(Bn, fs, nb, order, lag_fs=None, sliced=False):
+        args = list(silk_core_inputs(rng, Bn, fs, nb))
+        if lag_fs is not None:
+            args[7][:] = lag_fs * fs
+        targs = [dev_t(a) for a in args]
+        if sliced:
+            for i, off in ((0, 3), (2, 5)):
+                wide = torch.zeros((Bn, targs[i].shape[1] + 9),
+                                   dtype=torch.int32, device=dev)
+                wide[:, off:off + targs[i].shape[1]] = targs[i]
+                targs[i] = wide[:, off:off + targs[i].shape[1]]
         kw = dict(fs_khz=fs, nb_subfr=nb, order=order)
         got = silk_core(*targs, **kw)
         want = silk_core_ref(*targs, **kw)
         if not same(got, want):
-            raise SystemExit(f"K7 ({fs}, {nb}, {order}) differs from its "
-                             f"plain version: {max_err(got[0], want[0])}")
-        err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
+            raise SystemExit(f"K7 (B {Bn}, {fs}, {nb}, {order}, lags "
+                             f"{lag_fs} fs, sliced {sliced}) differs from "
+                             f"its plain version: {max_err(got[0], want[0])}")
+        return args, tuple(targs), kw, max(max_err(got[0], want[0]),
+                                           max_err(got[1], want[1]))
+
+    for Bn in (1, 15, 17, 2047):
+        k7_case(Bn, 16, 4, 16)
+    for lag_fs in (2, 18):
+        k7_case(B, 16, 4, 16, lag_fs=lag_fs)
+    k7_case(B, 16, 4, 16, sliced=True)
+    k7_case(2047, 8, 4, 10, sliced=True)
+    err = 0
+    for fs, nb, order in [(16, 4, 16), (12, 4, 16), (8, 4, 10),
+                          (16, 2, 16)]:
+        args, targs, kw, e = k7_case(B, fs, nb, order)
+        err = max(err, e)
         if (fs, nb, order) == (16, 4, 16):
             res["K7"] = dict(**timings(lambda: silk_core(*targs, **kw),
                                        lambda: silk_core_ref(*targs, **kw),
                                        20),
                              **bound(*k7_work(args, fs, nb, order), sm_hz))
     res["K7"]["max_abs_err"] = err
-    report(card, f"K7 silk_core, all 4 (fs, nb, order) sets; timed: "
+    report(card, f"K7 silk_core, all 4 (fs, nb, order) sets, also ragged "
+           f"widths, all lags 2 fs / 18 fs and misaligned slices; timed: "
            f"(16, 4, 16), B={B}", res["K7"])
 
     # K6: every chunk length the resampler gives it (the first block of
@@ -637,50 +680,69 @@ def main() -> int:
         if "Compiling entry" in line or "Used" in line:
             print("  " + line.strip())
 
+    # the floor of every device time below: a graph that holds nothing
+    print(f"[{card}] an empty CUDA graph replays in "
+          f"{device_ms(lambda: None, 200):.4f} ms")
     res = check_celt_kernels(dev, card, sm_mhz * 1e6)
     res.update(check_silk_kernels(dev, card, sm_mhz * 1e6))
     res.update(check_loss_kernels(dev, card, sm_mhz * 1e6))
 
-    # the CELT path: counts set to 0 just before, read just after
-    celt = {"K1": fft.fft_blocks, "K2": comb.comb_filter_step_T,
-            "K3": deemph.deemphasis_T, "K4": comb.comb_deemph_step_T}
-    for w in celt.values():
+    # Every path below counts: each wrapper's count is set to 0 here, just
+    # before the first pool, and read once after the last; `counted`
+    # prints what one pool launched.
+    wrappers = {"K1": fft.fft_blocks, "K2": comb.comb_filter_step_T,
+                "K3": deemph.deemphasis_T, "K4": comb.comb_deemph_step_T,
+                "K5": lpc_synth.lpc_synth, "K6": up2_hq.up2_hq,
+                "K7": core_kernel.silk_core,
+                "K8": plc_kernel.silk_plc_conceal, "K9": cng_kernel.cng_add}
+
+    def counted(label, run):
+        before = {k: w.launches for k, w in wrappers.items()}
+        out = run()
+        made = {k: w.launches - before[k] for k, w in wrappers.items()
+                if w.launches != before[k]}
+        print(f"[{card}] launches in {label}: {made}")
+        return out
+
+    for w in wrappers.values():
         w.launches = 0
-    run_pool(dev, card, "CELT mono", ["celt_fb_mono_20ms",
-                                      "celt_fb_mono_drums_20ms"], B, 64)
-    run_pool(dev, card, "CELT stereo", ["celt_fb_stereo_20ms",
-                                        "celt_fb_stereo_drums_20ms"],
-             B // 2, 1, channels=2)
-    launches = {k: w.launches for k, w in celt.items()}
+
+    # the CELT path
+    counted("the CELT mono pool", lambda: run_pool(
+        dev, card, "CELT mono", ["celt_fb_mono_20ms",
+                                 "celt_fb_mono_drums_20ms"], B, 64))
+    counted("the CELT stereo pool", lambda: run_pool(
+        dev, card, "CELT stereo", ["celt_fb_stereo_20ms",
+                                   "celt_fb_stereo_drums_20ms"], B // 2, 1,
+        channels=2))
 
     src = [fixture(f"celt_fb_mono{d}_20ms") for d in ("", "_drums")] * 2
     loss = lambda i, k: (3 * i + k) % 5 == 0
-    a, b = (StreamPool(src, superstep_k=3, device=d).run(loss=loss)
-            for d in (dev, "cpu"))
+    a = counted("the lossy CELT pool", lambda: StreamPool(
+        src, superstep_k=3, device=dev).run(loss=loss))
+    b = StreamPool(src, superstep_k=3, device="cpu").run(loss=loss)
     if not all(np.array_equal(x, y) for x, y in zip(a, b)):
         raise SystemExit("lossy CELT pool: card and CPU differ")
     print("lossy CELT pool (4 streams, K=3, every 5th packet lost): "
           "card == CPU")
 
-    # the mono SILK path: counts set to 0 just before, read just after
-    silk = {"K5": lpc_synth.lpc_synth, "K6": up2_hq.up2_hq,
-            "K7": core_kernel.silk_core}
-    for w in silk.values():
-        w.launches = 0
-    run_pool(dev, card, "SILK WB", ["silk_wb_mono_20ms",
-                                    "silk_wb_fec_mono_20ms"], B, 64)
+    # the mono SILK path
+    counted("the SILK WB pool (2048-row bucket)", lambda: run_pool(
+        dev, card, "SILK WB", ["silk_wb_mono_20ms", "silk_wb_fec_mono_20ms"],
+        B, 64))
     small = ["silk_nb_mono_20ms", "silk_mb_mono_20ms", "silk_wb_mono_20ms"]
-    outs = run_pool(dev, card, "SILK NB/MB/WB", small, 48, 3)
-    launches.update({k: w.launches for k, w in silk.items()})
+    outs = counted("the SILK NB/MB/WB pool (16-row buckets)",
+                   lambda: run_pool(dev, card, "SILK NB/MB/WB", small, 48,
+                                    3))
     cpu = StreamPool([fixture(small[i % 3]) for i in range(48)],
                      superstep_k=3, device="cpu").run()
     if not all(np.array_equal(x, y) for x, y in zip(outs, cpu)):
         raise SystemExit("SILK NB/MB/WB pool: card and CPU differ")
     print("SILK NB/MB/WB pool (48 streams, K=3): card == CPU")
 
-    # the lossy mono SILK path: counts set to 0 just before, read just
-    # after. A tenth of the rows is lost on every step; the 20 distinct
-    # (fixture, loss phase) streams run first on the CPU as the twins.
+    # the lossy mono SILK path. A tenth of the rows is lost on every
+    # step; the 20 distinct (fixture, loss phase) streams run first on
+    # the CPU as the twins.
     wb = ["silk_wb_mono_20ms", "silk_wb_fec_mono_20ms"]
     tenth = lambda i, k: i % 10 == k % 10
     rfc = dict(compat_ref=False, rfc_plc=True)
@@ -694,20 +756,17 @@ def main() -> int:
         raise SystemExit("lossy SILK twins: FEC changed nothing")
     print(f"lossy SILK twins (20 streams on the CPU, without and with "
           f"FEC): {time.perf_counter() - t0:.1f} s")
-    lossy = {"K8": plc_kernel.silk_plc_conceal, "K9": cng_kernel.cng_add}
-    for w in lossy.values():
-        w.launches = 0
     for fec in (False, True):
-        run_pool(dev, card, f"lossy SILK WB (10 % lost, fec={fec})", wb, B,
-                 64, twins=twins[fec], loss=tenth, fec=fec, **rfc)
-    launches.update({k: w.launches for k, w in lossy.items()})
-    print(f"[{card}] lossy SILK WB pools: K8 {launches['K8']} and K9 "
-          f"{launches['K9']} launches in 2 runs of "
-          f"{len(twins[False][0]) // 960 + 1} frame steps")
+        counted(f"the lossy SILK WB pool, fec={fec} "
+                f"({len(twins[fec][0]) // 960 + 1} frame steps)",
+                lambda: run_pool(
+                    dev, card, f"lossy SILK WB (10 % lost, fec={fec})", wb,
+                    B, 64, twins=twins[fec], loss=tenth, fec=fec, **rfc))
 
     seventh = lambda i, k: k > 0 and k % 7 == 0
     pool = StreamPool([fixture(wb[0])] * 4, superstep_k=3, device=dev)
-    outs = pool.run(loss=seventh)
+    outs = counted("the compat-loss SILK pool",
+                   lambda: pool.run(loss=seventh))
     gold = np.fromfile(ROOT / "tests" / "golden"
                        / "silk_wb_mono_20ms.loss7.pcm",
                        dtype=np.int16).reshape(-1, 1)
@@ -721,7 +780,8 @@ def main() -> int:
     print("compat-loss SILK pool (4 WB streams, K=3, every 7th packet "
           "lost): card == tests/golden loss7")
 
-    print(f"[{card}] main-path launches: {launches}")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[{card}] launches over every pool: {launches}")
     for k, v in launches.items():
         # K4 is on no path, as in the JAX package: the CELT frame step
         # runs K2 and K3 apart, so the CELT pools launch it 0 times

@@ -9,18 +9,21 @@
 // place over rows [start, start+N); par (12, B) as K2's; mem (B,) int32;
 // pcm (N, B) int16.
 //
-// What bounds it: K2's walk (a 5-tap feedback recurrence at a per-stream
-// lag, sequential in time) followed by K3's first-order recurrence over
-// the same N rows: one thread per stream, latency-bound like both. The
-// TPU kernel fused them to keep the frame's rows in VMEM between the two
-// and to save a launch. On the card the fusion saves a launch and one
-// read of the rows from L2, microseconds both, while both walks wait on
-// load latency sample by sample: as on the TPU, the fused form is no
-// faster than the two launches. On an H100 80GB HBM3 at 700 W, at
-// (2168, 2048) and N 960 (chip_smoke.py): 0.443 ms against 0.388 ms for
-// K2 then K3; a variant that fed the deemphasis from the comb's registers
-// instead of reading the rows back took 0.506 ms. The epilogue below reads
-// back the rows its thread wrote.
+// What bounds it: the comb's walk by one thread per stream through global
+// memory (celt_comb.cuh::comb_region: a 5-tap feedback recurrence at a
+// per-stream lag, a load behind each store) followed by K3's first-order
+// recurrence over the same N rows: latency-bound like both. The TPU kernel
+// fused them to keep the frame's rows in VMEM between the two and to save
+// a launch. Here the fusion saves a launch and one read of the rows from
+// L2, microseconds both, while both walks wait on load latency sample by
+// sample: as on the TPU, this fused form is no faster than two launches.
+// On an H100 80GB HBM3 at 700 W, at (2168, 2048) and N 960
+// (chip_smoke.py): 0.443 ms against 0.388 ms for the same one-thread comb
+// and K3 apart; a variant that fed the deemphasis from the comb's
+// registers instead of reading the rows back took 0.506 ms. K2 has since
+// left this walk for a shared-memory tile with a warp per stream
+// (celt_comb.cu); whether a deemphasis epilogue on that tile pays is open
+// (PERF.md). The epilogue below reads back the rows its thread wrote.
 #include <cuda_runtime.h>
 
 #include "celt_comb.cuh"

@@ -11,15 +11,16 @@
 // (B, ORDER) Q12; Bq (B, nb, 5) Q14; par (B, nb + 2) = [lag per subframe,
 // inv_gain_Q30, prev_gain_Q10]; sLPC (B, 16); xq (B, frame), all int32.
 // The LTP state lives in a global scratch `sltp` (20 fs + frame, B), one
-// column per stream, as in K7 (silk_core.cu): a warp's accesses are
-// coalesced and the working set stays in L2; the LPC ring, the
+// column per stream: a warp's accesses are coalesced and the working set
+// stays in L2 (K7, silk_core.cu, keeps the same state in shared memory:
+// the scheme to carry over here); the LPC ring, the
 // coefficients and the sliding taps stay in registers.
 //
 // What bounds it: its int32 operations (per sample 5 LTP taps, ORDER LPC
 // taps and the scaling: ~160 at order 16; per rewhitened position
 // 3 ORDER + 12), far above its bytes. The recurrences are sequential in
 // time and independent across streams, so one thread per stream:
-// latency-bound like K7.
+// bound by the latency of its own chain through the scratch.
 //
 // Against the TPU kernel: Mosaic has no per-lane dynamic index, so the
 // TPU shifted rows in bit-decomposed steps and walked the LTP in chunks of

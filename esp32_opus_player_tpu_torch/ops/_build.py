@@ -107,7 +107,7 @@ def _bind(so):
     so.celt_fft_blocks.restype = i
     so.celt_fft_blocks.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, p, p]
     so.celt_comb_step.restype = i
-    so.celt_comb_step.argtypes = [p, i, i, i, p, p, p, p]
+    so.celt_comb_step.argtypes = [p, i, i, i, p, p, p, p, p]
     so.celt_deemph.restype = i
     so.celt_deemph.argtypes = [p, ll, i, i, i, p, p, p, i, p]
     so.silk_lpc_synth.restype = i
@@ -115,8 +115,7 @@ def _bind(so):
     so.silk_up2_hq.restype = i
     so.silk_up2_hq.argtypes = [p, i, i, ll, p, p, p, p]
     so.silk_core.restype = i
-    so.silk_core.argtypes = [p, ll, p, ll, p, p, p, p, p, p, p, i, i, i, i,
-                             p]
+    so.silk_core.argtypes = [p, p, ll, p, p, p, i, i, i, i, p]
     so.silk_plc.restype = i
     so.silk_plc.argtypes = [p, ll, p, ll, p, p, p, p, p, p, p, i, i, i, i, p]
     so.silk_cng.restype = i

@@ -25,6 +25,7 @@ produces others; the clamp keeps every read inside the buffer).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -116,35 +117,37 @@ def comb_filter_step_T_ref(bufT, start: int, N: int, comb1, comb2):
     return bufT
 
 
-def _cuda_args(what: str, bufT, comb1, comb2):
-    """The checks both kernels share; returns the packed (12, B) params."""
+def _check_buf(what: str, bufT):
     if bufT.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {bufT.device}")
     if bufT.dtype != I32 or bufT.dim() != 2 or not bufT.is_contiguous():
         raise ValueError(f"{what}: bufT must be a contiguous 2-D int32 "
                          f"tensor")
-    par = torch.stack([*comb1, *comb2]).to(I32).contiguous()
-    if par.shape != (12, bufT.shape[1]) or par.device != bufT.device:
-        raise ValueError(f"{what}: params must be 12 x (B,) on the "
-                         f"buffer's device")
-    return par
 
 
 def comb_filter_step_T(bufT, start: int, N: int, comb1, comb2):
     """K2 wrapper, in place on bufT (L, B) int32; returns bufT. CPU
     tensors take the twin; CUDA tensors launch csrc/celt_comb.cu (never
-    the twin)."""
+    the twin). The kernel reads the 12 parameter vectors where they lie
+    (any element stride: the pool passes columns of its staging rows)."""
     if start < MAX_PERIOD + 2 or start + N > bufT.shape[0]:
         raise ValueError("comb_filter_step_T: rows out of range")
     if bufT.device.type == "cpu":
         return comb_filter_step_T_ref(bufT, start, N, comb1, comb2)
     from .. import _build
-    par = _cuda_args("comb_filter_step_T", bufT, comb1, comb2)
+    _check_buf("comb_filter_step_T", bufT)
     B = bufT.shape[1]
+    par = [v.to(I32) for v in (*comb1, *comb2)]
+    if len(par) != 12 or any(v.shape != (B,) or v.device != bufT.device
+                             for v in par):
+        raise ValueError("comb_filter_step_T: params must be 12 x (B,) on "
+                         "the buffer's device")
+    ptrs = (ctypes.c_void_p * 12)(*(v.data_ptr() for v in par))
+    strides = (ctypes.c_longlong * 12)(*(v.stride(0) for v in par))
     gains, f_tab = _tables(bufT.device)
     with torch.cuda.device(bufT.device):
         err = _build.lib().celt_comb_step(
-            bufT.data_ptr(), B, start, N, par.data_ptr(), f_tab.data_ptr(),
+            bufT.data_ptr(), B, start, N, ptrs, strides, f_tab.data_ptr(),
             gains.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "celt_comb_step")
     comb_filter_step_T.launches += 1
@@ -173,8 +176,12 @@ def comb_deemph_step_T(bufT, start: int, N: int, comb1, comb2, mem):
     if bufT.device.type == "cpu":
         return comb_deemph_step_T_ref(bufT, start, N, comb1, comb2, mem)
     from .. import _build
-    par = _cuda_args("comb_deemph_step_T", bufT, comb1, comb2)
+    _check_buf("comb_deemph_step_T", bufT)
     B = bufT.shape[1]
+    par = torch.stack([*comb1, *comb2]).to(I32).contiguous()
+    if par.shape != (12, B) or par.device != bufT.device:
+        raise ValueError("comb_deemph_step_T: params must be 12 x (B,) on "
+                         "the buffer's device")
     mem = mem.to(I32).contiguous()
     if mem.shape != (B,) or mem.device != bufT.device:
         raise ValueError("comb_deemph_step_T: mem must be (B,) on the "

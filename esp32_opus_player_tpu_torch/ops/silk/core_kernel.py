@@ -14,11 +14,12 @@ recurrence.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .lpc_synth import lpc_synth_ref
 from .torch_core import I32, MAX_LPC_ORDER, silk_core_frame_xla
-
 
 def silk_core_ref(*args, fs_khz: int, nb_subfr: int, order: int):
     """Plain torch version of K7 (pure torch, no kernel on any device)."""
@@ -37,14 +38,31 @@ def _rows(t, width: int, what: str):
     return t
 
 
+def _operand(t, tail: tuple, what: str, dtypes=(I32,)):
+    """t as a (B, *tail) operand the kernel can read in place: one of
+    `dtypes` (else cast to int32), the dimensions after the first packed
+    (else copied). Returns (tensor, row stride)."""
+    if t.dtype not in dtypes:
+        t = t.to(I32)
+    if t.dim() != 1 + len(tail) or any(n < m for n, m in zip(t.shape[1:],
+                                                             tail)):
+        raise ValueError(f"{what} must be (B, {tail}) or wider")
+    if t.shape[0] and not t[0].is_contiguous():
+        t = t.contiguous()
+    return t, t.stride(0)
+
+
 def silk_core(outBuf, sLPC0, exc, A_Q12, B_Q14, gains_q16,
               inv_gain_q31_k0, pitchL, signal_type_voiced, rewhiten_k,
               gain_adj_q16, prev_gain_match, *, fs_khz: int,
               nb_subfr: int, order: int):
     """K7 wrapper: (xq, sLPC') as silk_core_ref. CPU tensors take the
     plain version; CUDA tensors launch csrc/silk_core.cu (never the plain
-    version). Lags must be at least 2 * fs_khz (PE_MIN_LAG), as every
-    decoded and every dummy row's are."""
+    version). The kernel reads every operand where it lies (rows any
+    stride apart, flags as bool or int32: the pool passes column slices
+    of its staging rows), so the call is one launch. Lags must be at
+    least 2 * fs_khz (PE_MIN_LAG), as every decoded and every dummy
+    row's are."""
     args = (outBuf, sLPC0, exc, A_Q12, B_Q14, gains_q16, inv_gain_q31_k0,
             pitchL, signal_type_voiced, rewhiten_k, gain_adj_q16,
             prev_gain_match)
@@ -60,29 +78,31 @@ def silk_core(outBuf, sLPC0, exc, A_Q12, B_Q14, gains_q16,
                          "10/16")
     B = exc.shape[0]
     frame = nb_subfr * 5 * fs_khz
-    ltp_mem = 20 * fs_khz
-    ob = _rows(outBuf, ltp_mem + frame, "outBuf")
-    ex = _rows(exc, frame, "exc")
-    A = A_Q12[:, :, :order].to(I32).contiguous()
-    Bq = B_Q14[:, :nb_subfr].to(I32).contiguous()
-    par = torch.stack([gains_q16, inv_gain_q31_k0, pitchL, gain_adj_q16,
-                       signal_type_voiced, rewhiten_k, prev_gain_match],
-                      dim=1)[:, :, :nb_subfr].to(I32).contiguous()
-    st0 = sLPC0.to(I32).contiguous()
-    if A.shape != (B, 2, order) or Bq.shape != (B, nb_subfr, 5) \
-            or st0.shape != (B, MAX_LPC_ORDER) or ob.shape[0] != B \
-            or len({t.device for t in (ob, ex, A, Bq, par, st0)}) != 1:
+    # A's two coefficient sets may lie wider apart than `order`
+    A = A_Q12.to(I32)
+    if A.dim() != 3 or A.shape[1] != 2 or A.shape[2] < order:
+        raise ValueError("silk_core: A_Q12 must be (B, 2, >= order)")
+    if A.stride(2) != 1:
+        A = A.contiguous()
+    rows = [_operand(outBuf, (20 * fs_khz + frame,), "outBuf"),
+            _operand(exc, (frame,), "exc"), (A, A.stride(0)),
+            _operand(B_Q14[:, :nb_subfr], (nb_subfr, 5), "B_Q14"),
+            _operand(sLPC0, (MAX_LPC_ORDER,), "sLPC0")]
+    rows += [_operand(t, (nb_subfr,), "a parameter", (I32, torch.bool))
+             for t in (gains_q16, inv_gain_q31_k0, pitchL, gain_adj_q16,
+                       signal_type_voiced, rewhiten_k, prev_gain_match)]
+    if any(t.shape[0] != B or t.device != exc.device for t, _ in rows):
         raise ValueError("silk_core: shapes or devices disagree")
+    ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr() for t, _ in rows))
+    strides = (ctypes.c_longlong * 12)(*(st for _, st in rows))
+    par_bytes = (ctypes.c_int * 7)(*(t.element_size() for t, _ in rows[5:]))
     xq = torch.empty((B, frame), dtype=I32, device=exc.device)
-    st2 = torch.empty_like(st0)
-    # the LTP state, one column per stream (coalesced across a warp)
-    sltp = torch.empty((ltp_mem + frame, B), dtype=I32, device=exc.device)
+    st2 = torch.empty((B, MAX_LPC_ORDER), dtype=I32, device=exc.device)
     with torch.cuda.device(exc.device):
         err = _build.lib().silk_core(
-            ob.data_ptr(), ob.stride(0), ex.data_ptr(), ex.stride(0),
-            A.data_ptr(), Bq.data_ptr(), par.data_ptr(), st0.data_ptr(),
-            xq.data_ptr(), st2.data_ptr(), sltp.data_ptr(), B, fs_khz,
-            nb_subfr, order, torch.cuda.current_stream().cuda_stream)
+            ptrs, strides, A.stride(1), par_bytes, xq.data_ptr(),
+            st2.data_ptr(), B, fs_khz, nb_subfr, order,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "silk_core")
     silk_core.launches += 1
     return xq, st2

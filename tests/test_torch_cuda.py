@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain torch twins on an
-NVIDIA card, bit for bit, at the main path's width (B = 2048 streams),
-and the port's pool on the card against tests/golden. Needs a card;
+NVIDIA card, bit for bit, at the main path's width (B = 2048 streams;
+K2 and K7 also at widths that leave their tiles ragged), and the port's
+pool on the card against tests/golden. Needs a card;
 without one every test skips. Run on the card from the repository root:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -44,18 +45,42 @@ def test_fft_kernel_matches_twin(dev, shift, Bblk):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("N", [960, 240])
-def test_comb_kernel_matches_twin(dev, N):
+# widths on both sides of K2's 8-stream tile and of K7's block of streams
+WIDTHS = [1, 7, 129, 2047, B]
+
+
+def _comb_check(dev, rows, N, lags=None):
     from esp32_opus_player_tpu_torch.ops.celt.comb import (
         comb_filter_step_T, comb_filter_step_T_ref)
-    rng = np.random.default_rng(N)
-    buf = t32(rng.integers(-(1 << 26), 1 << 26, (DBS + OV, B)), dev)
-    c1 = tuple(t32(v, dev) for v in comb_params(rng, B))
-    c2 = tuple(t32(v, dev) for v in comb_params(rng, B))
-    want = comb_filter_step_T_ref(buf.clone(), DBS - N, N, c1, c2)
-    got = comb_filter_step_T(buf, DBS - N, N, c1, c2)
+    rng = np.random.default_rng(N + rows)
+    buf = t32(rng.integers(-(1 << 26), 1 << 26, (DBS + OV, rows)), dev)
+    combs = []
+    for _ in range(2):
+        c = comb_params(rng, rows)
+        if lags is not None:
+            c[0][:] = c[1][:] = lags
+        combs.append(tuple(t32(v, dev) for v in c))
+    want = comb_filter_step_T_ref(buf.clone(), DBS - N, N, *combs)
+    n = comb_filter_step_T.launches
+    got = comb_filter_step_T(buf, DBS - N, N, *combs)
+    assert comb_filter_step_T.launches == n + 1
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N", [120, 240, 480, 960])
+@pytest.mark.parametrize("rows", WIDTHS)
+def test_comb_kernel_matches_twin(dev, rows, N):
+    """K2 at ragged widths and every frame size, lags random in 15..1024
+    with the edge rows of comb_params."""
+    _comb_check(dev, rows, N)
+
+
+@pytest.mark.parametrize("lags", [15, 1024])
+@pytest.mark.parametrize("rows,N", [(129, 960), (B, 120)])
+def test_comb_kernel_lag_edges(dev, rows, N, lags):
+    """K2 with every lag at the shortest (chunks of 13) or the longest."""
+    _comb_check(dev, rows, N, lags)
 
 
 @pytest.mark.parametrize("CC,downsample", [(1, 1), (2, 1), (1, 2), (2, 6)])
@@ -125,19 +150,45 @@ def test_pool_loss_card_matches_cpu(dev):
 SILK_SETS = [(16, 4, 16), (12, 4, 16), (8, 4, 10), (16, 2, 16)]
 
 
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("rows", WIDTHS)
 @pytest.mark.parametrize("fs,nb,order", SILK_SETS)
-def test_silk_core_kernel_matches_plain(dev, fs, nb, order):
+def test_silk_core_kernel_matches_plain(dev, fs, nb, order, rows, sliced):
+    """K7 at ragged widths; sliced: outBuf and exc as column slices of
+    wider tensors (rows strided, starts not 16-byte aligned), as the
+    pool hands them over."""
     from esp32_opus_player_tpu_torch.ops.silk.core_kernel import (
         silk_core, silk_core_ref)
     from torch_port_util import silk_core_inputs
-    rng = np.random.default_rng(fs * 10 + nb)
-    args = tuple(torch.as_tensor(a, device=dev)
-                 for a in silk_core_inputs(rng, B, fs, nb))
+    rng = np.random.default_rng(fs * 10 + nb + rows)
+    args = [torch.as_tensor(a, device=dev)
+            for a in silk_core_inputs(rng, rows, fs, nb)]
+    if sliced:
+        for i, off in ((0, 3), (2, 5)):
+            wide = torch.zeros((rows, args[i].shape[1] + 9),
+                               dtype=torch.int32, device=dev)
+            wide[:, off:off + args[i].shape[1]] = args[i]
+            args[i] = wide[:, off:off + args[i].shape[1]]
     kw = dict(fs_khz=fs, nb_subfr=nb, order=order)
     n = silk_core.launches
     got = silk_core(*args, **kw)
     assert silk_core.launches == n + 1
     want = silk_core_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("lag_fs", [2, 18])
+def test_silk_core_kernel_lag_edges(dev, lag_fs):
+    """K7 with every lag at 2 fs (the chunk walk's edge) and at 18 fs."""
+    from esp32_opus_player_tpu_torch.ops.silk.core_kernel import (
+        silk_core, silk_core_ref)
+    from torch_port_util import silk_core_inputs
+    args = silk_core_inputs(np.random.default_rng(lag_fs), 257, 16, 4)
+    args[7][:] = lag_fs * 16
+    args = tuple(torch.as_tensor(a, device=dev) for a in args)
+    kw = dict(fs_khz=16, nb_subfr=4, order=16)
+    got, want = silk_core(*args, **kw), silk_core_ref(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
