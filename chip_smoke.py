@@ -12,10 +12,11 @@ Phases (any failure exits non-zero; there is no CPU path):
    paths' shapes, bit for bit (tolerance 0: int32 fixed point), and both
    timed: as device time (one call captured in a CUDA graph, replayed)
    and as eager stream time; beside each, its bound (the least time the
-   card could take for the same work, from this run's inputs). The two
-   tiled kernels, K2 and K7, are first held at widths that leave their
-   tiles ragged and at the lag edges, K7 also on misaligned column
-   slices;
+   card could take for the same work, from this run's inputs). The
+   tiled kernels, K2, K3, K7 and K8, are first held at widths that leave
+   their tiles ragged (K3 at every downsample factor), K2, K7 and K8 at
+   the lag edges, K7 and K8 also on misaligned column slices; K3 is
+   timed at both paths' shapes (CC 1, B 2048 and CC 2, B 1024);
 4. the CELT path through StreamPool.run(): a mono pool of 2048 streams in
    K = 64 windows and a stereo pool of 1024 streams per frame, every
    stream bit-equal to tests/golden; then a small CELT pool with packet
@@ -339,17 +340,29 @@ def check_celt_kernels(dev, card, sm_hz):
     report(card, f"K2 comb_filter_step_T, also B in (1, 7, 9, 2047) and "
            f"all lags 15 / 1024; timed: N=960, B={B}", res["K2"])
 
-    # K3: CC 1 (B = 2048, the mono pool) and CC 2 (B = 1024, stereo)
-    err = 0
-    for CC, nb in [(1, B), (2, B // 2)]:
+    # K3: widths around a block's 8 columns at CC 1 and CC 2, every
+    # downsample factor; then timed at CC 1 (B = 2048, the mono pool) and
+    # CC 2 (B = 1024, stereo), both on a strided view of decode_mem
+    def k3_case(CC, nb, d=1):
         dm = t32(rng.integers(-(1 << 28), 1 << 28, (CC, DBS + OV, nb)))
         mem = t32(rng.integers(-(1 << 20), 1 << 20, (nb, CC)))
         syn = dm[:, DBS - 960:DBS]
-        got = deemphasis_T(syn, mem)
-        want = deemphasis_T_ref(syn, mem)
+        got = deemphasis_T(syn, mem, d)
+        want = deemphasis_T_ref(syn, mem, d)
         if not same(got, want):
-            raise SystemExit(f"K3 CC={CC} differs from its plain version")
-        err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
+            raise SystemExit(f"K3 (CC {CC}, B {nb}, downsample {d}) differs "
+                             f"from its plain version")
+        return syn, mem, max(max_err(got[0], want[0]),
+                             max_err(got[1], want[1]))
+
+    err = 0
+    for CC, nb in [(1, 1), (1, 7), (1, 9), (1, 15), (1, 17), (1, 2047),
+                   (2, 1023)]:
+        for d in (1, 2, 3, 4, 6):
+            err = max(err, k3_case(CC, nb, d)[2])
+    for CC, nb in [(1, B), (2, B // 2)]:
+        syn, mem, e = k3_case(CC, nb)
+        err = max(err, e)
         # reads: the frame's rows and the memory; writes: int16 PCM and
         # the memory. Per sample: sum, Q15 product, round, clip (8).
         t = dict(**timings(lambda: deemphasis_T(syn, mem),
@@ -359,7 +372,10 @@ def check_celt_kernels(dev, card, sm_hz):
         report(card, f"K3 deemphasis_T, CC={CC}, B={nb}", t)
         if CC == 1:
             res["K3"] = t
-    res["K3"]["max_abs_err"] = err
+    res["K3"].update(max_abs_err=err, ms_cc2=t["ms"],
+                     bound_ms_cc2=t["bound_ms"])
+    print(f"[{card}] K3 also at B in (1, 7, 9, 15, 17, 2047) (CC 1) and "
+          f"1023 (CC 2), downsample 1/2/3/4/6: bit-equal")
 
     # K4: K2 then K3 in one launch, on K2's inputs and one channel's
     # memory; timed beside the two launches it would replace
@@ -521,8 +537,10 @@ def check_silk_kernels(dev, card, sm_hz):
 
 def check_loss_kernels(dev, card, sm_hz):
     """K8 and K9 against their plain versions on the card (bit-equal), at
-    the lossy pool's shapes: K8 at B = 2048 on all four (fs, nb, order)
-    sets, rows 0 and 1 at the lag edges 2 fs and 18 fs, timed at WB
+    the lossy pool's shapes: K8 on all four (fs, nb, order) sets at
+    B = 1, 15, 17, 2047 and 2048 (rows 0 and 1 at the lag edges 2 fs and
+    18 fs) and at B = 2048 with every lag at 2 fs, at 18 fs or rising,
+    its operands column slices of one wider tensor, timed at WB
     (16, 4, 16); K9 at B = 2048, frame 320, order 16, with every row
     masked on and with the pool's mask (every 10th row lost), timed with
     the latter."""
@@ -534,25 +552,39 @@ def check_loss_kernels(dev, card, sm_hz):
     from esp32_opus_player_tpu_torch.ops.silk.torch_plc import (
         cng_add_xla, silk_plc_conceal_frame_xla)
     sys.path.insert(0, str(ROOT / "tests"))
-    from torch_port_util import silk_plc_inputs
+    from torch_port_util import column_slices, silk_plc_inputs
     rng = np.random.default_rng(2026)
 
     def dev_t(a):
         return torch.as_tensor(np.asarray(a), device=dev)
 
     res = {}
-    err = 0
-    for fs, nb, order in [(16, 4, 16), (12, 4, 10), (8, 4, 10),
-                          (16, 2, 16)]:
-        args = silk_plc_inputs(rng, B, fs, nb, order)
-        targs = tuple(dev_t(a) for a in args)
+    # K8: widths around a block's 16 streams, every lag at 2 fs or 18 fs
+    # or rising across the subframes, every operand a column slice of one
+    # wider tensor at an odd offset (as the pool passes them); all four
+    # sets, then timed at B = 2048, (16, 4, 16) on such slices
+    def k8_case(Bn, fs, nb, order, lags=None):
+        args = silk_plc_inputs(rng, Bn, fs, nb, order, lags)
+        targs = tuple(column_slices(args, dev))
         kw = dict(fs_khz=fs, nb_subfr=nb, order=order)
         got = silk_plc_conceal(*targs, **kw)
         want = silk_plc_conceal_frame_xla(*targs, **kw)
         if not same(got, want):
-            raise SystemExit(f"K8 ({fs}, {nb}, {order}) differs from its "
-                             f"plain version: {max_err(got[0], want[0])}")
-        err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
+            raise SystemExit(f"K8 (B {Bn}, {fs}, {nb}, {order}, lags "
+                             f"{lags}) differs from its plain version: "
+                             f"{max_err(got[0], want[0])}")
+        return args, targs, kw, max(max_err(got[0], want[0]),
+                                    max_err(got[1], want[1]))
+
+    err = 0
+    sets = [(16, 4, 16), (12, 4, 10), (8, 4, 10), (16, 2, 16)]
+    for fs, nb, order in sets:
+        for Bn in (1, 15, 17, 2047):
+            err = max(err, k8_case(Bn, fs, nb, order)[3])
+        for lags in ("2fs", "18fs", "drift"):
+            err = max(err, k8_case(B, fs, nb, order, lags)[3])
+        args, targs, kw, e = k8_case(B, fs, nb, order)
+        err = max(err, e)
         if (fs, nb, order) == (16, 4, 16):
             res["K8"] = dict(
                 **timings(lambda: silk_plc_conceal(*targs, **kw),
@@ -560,8 +592,10 @@ def check_loss_kernels(dev, card, sm_hz):
                           20),
                 **bound(*k8_work(args, fs, nb, order), sm_hz))
     res["K8"]["max_abs_err"] = err
-    report(card, f"K8 silk_plc_conceal, all 4 (fs, nb, order) sets; timed: "
-           f"(16, 4, 16), B={B}", res["K8"])
+    report(card, f"K8 silk_plc_conceal, all 4 (fs, nb, order) sets, also "
+           f"B in (1, 15, 17, 2047), all lags 2 fs / 18 fs / rising, "
+           f"operands as misaligned column slices; timed: (16, 4, 16), "
+           f"B={B}", res["K8"])
 
     frame, order = 320, 16
     xq = dev_t(rng.integers(-32768, 32768, (B, frame)).astype(np.int32))
@@ -812,7 +846,10 @@ def main() -> int:
                     launches=launches[k], **{x: res[k][x] for x in keys},
                     library_ms=None)
                for k, (n, s, r) in meta.items()]
-    # K4's yardstick: the two launches it would replace, same inputs
+    # K3 at the stereo pool's shape too; K4's yardstick: the two launches
+    # it would replace, same inputs
+    kernels[2].update(ms_cc2=res["K3"]["ms_cc2"],
+                      bound_ms_cc2=res["K3"]["bound_ms_cc2"])
     kernels[3]["k2_then_k3_ms"] = res["K4"]["k2_then_k3_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

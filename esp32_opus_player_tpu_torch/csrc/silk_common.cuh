@@ -1,4 +1,4 @@
-// Q-format helpers of the SILK kernels (K5-K7), wrap-exact.
+// Q-format helpers of the SILK kernels (K5-K9), wrap-exact.
 //
 // They reproduce esp32_opus_player_tpu/ops/silk/jax_core.py's int32
 // chains op for op. Signed overflow is undefined in CUDA C++ and nvcc has
@@ -6,6 +6,8 @@
 // taken in uint32_t (or exactly in int64_t) and cast back; `>>` on a
 // negative int32 is arithmetic in nvcc, as the JAX chains assume.
 #pragma once
+#include <cuda_pipeline.h>
+
 #include <cstdint>
 
 #include "celt_common.cuh"
@@ -47,6 +49,19 @@ __device__ __forceinline__ int32_t add_sat32(int32_t a, int32_t b) {
   return s > kInt32Max ? kInt32Max : (s < kInt32Min ? kInt32Min : (int32_t)s);
 }
 
+// add_sat32 without the 64-bit sum: the wrapped sum overflowed iff both
+// operands differ from it in sign.
+__device__ __forceinline__ int32_t add_sat(int32_t a, int32_t b) {
+  const int32_t s = wadd(a, b);
+  return ((a ^ s) & (b ^ s)) < 0 ? (a < 0 ? kInt32Min : kInt32Max) : s;
+}
+
+// smulwb(a, b) with a already split into a >> 16 and a & 0xFFFF.
+__device__ __forceinline__ int32_t smul_split(int32_t hi, int32_t lo,
+                                              int32_t b) {
+  return wadd(wmul(hi, b), wmul(lo, b) >> 16);
+}
+
 // Clip first, so the shift cannot overflow.
 __device__ __forceinline__ int32_t lshift_sat32(int32_t a, int s) {
   return wshl(clamp32(a, kInt32Min >> s, kInt32Max >> s), s);
@@ -74,6 +89,15 @@ __device__ __forceinline__ int32_t lpc_step(int32_t (&ring)[16],
   for (int j = 0; j < 15; ++j) ring[j] = ring[j + 1];
   ring[15] = v;
   return v;
+}
+
+// Stage n words of a row into shared memory, a lane per word, 32 lanes
+// apart: 4-byte cp.async, so a row may start at any word. The caller
+// commits and waits.
+__device__ __forceinline__ void stage_row(int32_t* dst, const int32_t* src,
+                                          int n, int lane) {
+  for (int c = lane; c < n; c += 32)
+    __pipeline_memcpy_async(dst + c, src + c, 4);
 }
 
 }  // namespace otpu

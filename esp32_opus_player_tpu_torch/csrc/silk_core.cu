@@ -65,7 +65,6 @@
 // samples, one warp per block busy; the FIR 0.005, the LTP 0.002, the
 // staging 0.001, and 0.007 remain with all of them left out (launch,
 // parameter staging, output scaling; an empty graph replay: 0.0015-0.0044).
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "silk_common.cuh"
@@ -82,19 +81,6 @@ inline __host__ __device__ int core_words(int fs, int nb) {
   const int frame = nb * 5 * fs;
   return 2 * ((20 * fs + frame) | 1) + (frame | 1) + ((16 + frame) | 1) +
          7 * nb + 2 * 16 + 5 * nb;
-}
-
-// smulwb(a, b) with a already split into a >> 16 and a & 0xFFFF.
-__device__ __forceinline__ int32_t smul_split(int32_t hi, int32_t lo,
-                                              int32_t b) {
-  return wadd(wmul(hi, b), wmul(lo, b) >> 16);
-}
-
-// add_sat32 without the 64-bit sum: the wrapped sum overflowed iff both
-// operands differ from it in sign.
-__device__ __forceinline__ int32_t add_sat(int32_t a, int32_t b) {
-  const int32_t s = wadd(a, b);
-  return ((a ^ s) & (b ^ s)) < 0 ? (a < 0 ? kInt32Min : kInt32Max) : s;
 }
 
 // The per-stream operands, read where the caller has them: row b of each
@@ -144,10 +130,8 @@ silk_core_kernel(const CoreRows in, int32_t* __restrict__ xq,
   for (int s = warp; s < ns; s += nwarps) {
     const int32_t* obr = in.ob + (size_t)(b0 + s) * in.ob_stride;
     const int32_t* er = in.exc + (size_t)(b0 + s) * in.exc_stride;
-    for (int c = lane; c < n_ob; c += 32)
-      __pipeline_memcpy_async(wk + s * ls + c, obr + c, 4);
-    for (int c = lane; c < frame; c += 32)
-      __pipeline_memcpy_async(ex + s * es + c, er + c, 4);
+    stage_row(wk + s * ls, obr, n_ob, lane);
+    stage_row(ex + s * es, er, frame, lane);
     for (int c = lane; c < ltp_mem; c += 32) sl[s * ls + c] = 0;
   }
   for (int i = tid; i < ns * np; i += T) {

@@ -117,7 +117,7 @@ def _bind(so):
     so.silk_core.restype = i
     so.silk_core.argtypes = [p, p, ll, p, p, p, i, i, i, i, p]
     so.silk_plc.restype = i
-    so.silk_plc.argtypes = [p, ll, p, ll, p, p, p, p, p, p, p, i, i, i, i, p]
+    so.silk_plc.argtypes = [p, p, ll, p, p, i, i, i, i, p]
     so.silk_cng.restype = i
     so.silk_cng.argtypes = [p, ll, p, ll, p, p, p, p, p, p, i, i, i, p]
     so.celt_comb_deemph.restype = i

@@ -9,6 +9,15 @@ launches csrc/celt_deemph.cu; on a CPU tensor it runs the twin
 `deemphasis_T_ref`, the port of jax_synthesis.deemphasis_batch.
 Reference: deemphasis src/celt.cpp:1988; the IIR always runs at 48 kHz
 and keeps every downsample-th output (:2000-2013).
+
+The kernel (its source has the details and what bounds it): a block of
+256 threads owns 8 adjacent columns of one channel (256 blocks at both
+paths' shapes), stages their N rows into shared memory in four pieces
+with cp.async, and one thread per column walks the recurrence from
+shared memory while the other warps write the finished int16 rows out.
+The walk waits on no global load; its floor is the per-sample chain (the
+sum, and the Q15 product as one high-word multiply), which no exact scan
+shortens (smul truncates).
 """
 from __future__ import annotations
 
@@ -34,8 +43,9 @@ def deemphasis_T_ref(synT, mem, downsample: int = 1):
 
 def deemphasis_T(synT, mem, downsample: int = 1):
     """K3 wrapper. CPU tensors take the twin; CUDA tensors launch
-    csrc/celt_deemph.cu (never the twin). synT may be a view whose rows
-    are B apart with streams contiguous (a slice of decode_mem)."""
+    csrc/celt_deemph.cu (never the twin), one launch per call. synT may
+    be a view whose rows are B apart with streams contiguous (a slice of
+    decode_mem); any B >= 1."""
     if synT.device.type == "cpu":
         return deemphasis_T_ref(synT, mem, downsample)
     from .. import _build

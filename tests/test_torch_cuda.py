@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain torch twins on an
 NVIDIA card, bit for bit, at the main path's width (B = 2048 streams;
-K2 and K7 also at widths that leave their tiles ragged), and the port's
-pool on the card against tests/golden. Needs a card;
+K2, K3, K7 and K8 also at widths that leave their tiles ragged), and the
+port's pool on the card against tests/golden. Needs a card;
 without one every test skips. Run on the card from the repository root:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -83,15 +83,26 @@ def test_comb_kernel_lag_edges(dev, rows, N, lags):
     _comb_check(dev, rows, N, lags)
 
 
-@pytest.mark.parametrize("CC,downsample", [(1, 1), (2, 1), (1, 2), (2, 6)])
-def test_deemph_kernel_matches_twin(dev, CC, downsample):
+# widths on both sides of K8's blocks of 16 streams and K3's of 8 columns
+ROWS16 = [1, 15, 17, 2047, B]
+ROWS8 = [1, 7, 9, 15, 17, 2047, B]
+
+
+@pytest.mark.parametrize("downsample", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("rows", ROWS8)
+@pytest.mark.parametrize("CC", [1, 2])
+def test_deemph_kernel_matches_twin(dev, CC, rows, downsample):
+    """K3 at ragged widths and every downsample factor, on a strided view
+    of decode_mem as on the path."""
     from esp32_opus_player_tpu_torch.ops.celt.deemph import (
         deemphasis_T, deemphasis_T_ref)
-    rng = np.random.default_rng(CC * 7 + downsample)
-    dm = t32(rng.integers(-(1 << 28), 1 << 28, (CC, DBS + OV, B)), dev)
-    mem = t32(rng.integers(-(1 << 20), 1 << 20, (B, CC)), dev)
+    rng = np.random.default_rng(CC * 7 + downsample + rows)
+    dm = t32(rng.integers(-(1 << 28), 1 << 28, (CC, DBS + OV, rows)), dev)
+    mem = t32(rng.integers(-(1 << 20), 1 << 20, (rows, CC)), dev)
     syn = dm[:, DBS - 960:DBS]          # a strided view, as on the path
+    n = deemphasis_T.launches
     got = deemphasis_T(syn, mem, downsample)
+    assert deemphasis_T.launches == n + 1
     want = deemphasis_T_ref(syn, mem, downsample)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -256,19 +267,28 @@ def test_silk_pool_on_card_matches_golden(dev, names, n, K):
 PLC_SETS = [(16, 4, 16), (12, 4, 10), (8, 4, 10), (16, 2, 16)]
 
 
-@pytest.mark.parametrize("rows", [B, 5])
+def _plc_args(dev, rows, fs, nb, order, lags=None, sliced=True):
+    from torch_port_util import column_slices, silk_plc_inputs
+    rng = np.random.default_rng(fs * 10 + nb + rows)
+    args = silk_plc_inputs(rng, rows, fs, nb, order, lags)
+    if sliced:
+        return column_slices(args, dev)
+    return [t32(a, dev) for a in args]
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("rows", ROWS16)
 @pytest.mark.parametrize("fs,nb,order", PLC_SETS)
-def test_plc_conceal_kernel_matches_plain(dev, fs, nb, order, rows):
-    """K8 at the pool's width and at a few rows (it runs at every bucket
-    size), rows 0 and 1 at the lag edges 2 fs and 18 fs."""
+def test_plc_conceal_kernel_matches_plain(dev, fs, nb, order, rows, sliced):
+    """K8 at widths on both sides of its 16-stream block (it runs at
+    every bucket size), rows 0 and 1 at the lag edges 2 fs and 18 fs;
+    sliced: every operand a column slice of one wider tensor at an odd
+    offset, as the pool hands them over."""
     from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import (
         silk_plc_conceal)
     from esp32_opus_player_tpu_torch.ops.silk.torch_plc import (
         silk_plc_conceal_frame_xla)
-    from torch_port_util import silk_plc_inputs
-    rng = np.random.default_rng(fs * 10 + nb + rows)
-    args = tuple(t32(a, dev) for a in silk_plc_inputs(rng, rows, fs, nb,
-                                                      order))
+    args = _plc_args(dev, rows, fs, nb, order, sliced=sliced)
     kw = dict(fs_khz=fs, nb_subfr=nb, order=order)
     n = silk_plc_conceal.launches
     got = silk_plc_conceal(*args, **kw)
@@ -276,6 +296,42 @@ def test_plc_conceal_kernel_matches_plain(dev, fs, nb, order, rows):
     want = silk_plc_conceal_frame_xla(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("lags", ["2fs", "18fs", "drift"])
+@pytest.mark.parametrize("fs,nb,order", PLC_SETS)
+def test_plc_conceal_kernel_lag_edges(dev, fs, nb, order, lags):
+    """K8 with every lag at 2 fs (the shortest chunks), at 18 fs, or
+    rising across the subframes (a chunk length per subframe)."""
+    from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import (
+        silk_plc_conceal)
+    from esp32_opus_player_tpu_torch.ops.silk.torch_plc import (
+        silk_plc_conceal_frame_xla)
+    args = _plc_args(dev, 257, fs, nb, order, lags)
+    kw = dict(fs_khz=fs, nb_subfr=nb, order=order)
+    got = silk_plc_conceal(*args, **kw)
+    want = silk_plc_conceal_frame_xla(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_plc_conceal_is_one_launch(dev):
+    """One call on misaligned column slices is one device kernel: no
+    copy, no cast, no scratch fill (torch.profiler's device events)."""
+    from torch.profiler import ProfilerActivity, profile
+    from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import (
+        silk_plc_conceal)
+    args = _plc_args(dev, B, 16, 4, 16)
+    kw = dict(fs_khz=16, nb_subfr=4, order=16)
+    silk_plc_conceal(*args, **kw)       # build, shared-memory attribute
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        silk_plc_conceal(*args, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "plc_conceal_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("frame,order", [(320, 16), (240, 10), (160, 10),

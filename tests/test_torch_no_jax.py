@@ -1,7 +1,7 @@
 """The port stands alone: a fresh interpreter decodes a CELT and a SILK
 fixture through it, and a SILK fixture with lost packets (concealment and
 in-band FEC), with neither JAX nor the JAX package loaded, and no source
-file of the port (nor chip_smoke.py, nor the port's profiler) imports
+file of the port (nor chip_smoke.py, nor the port's tools) imports
 either. A native host library that fails to load raises at parse time."""
 import pathlib
 import re
@@ -50,7 +50,8 @@ def test_port_sources_never_import_jax():
     jax_pkg = re.compile(
         r"^\s*(import|from)\s+esp32_opus_player_tpu(\.|\s|$)", re.M)
     files = list(PKG.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_pool.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_pool.py",
+        ROOT / "tools" / "kernel_variants.py"]
     assert len(files) > 25
     names = {p.name for p in files}
     assert {"torch_plc.py", "plc_kernel.py", "cng_kernel.py",

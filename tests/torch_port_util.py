@@ -89,12 +89,14 @@ def silk_core_inputs(rng, B, fs, nb):
     return (ob, sl, exc, A, Bq, gains, inv, lag, voiced, rw, adj, match)
 
 
-def silk_plc_inputs(rng, B, fs, nb, order):
+def silk_plc_inputs(rng, B, fs, nb, order, lags=None):
     """Random inputs of one concealed SILK frame (the 8 arguments of
     silk_plc_conceal_frame as numpy), drawn as tests/test_device_batch.py
-    draws them; B4 and lag4 keep 4 rows whatever nb is. Edge rows: row 0
-    at the smallest conceal lag (2 * fs), row 1 at the largest
-    (18 * fs)."""
+    draws them; B4 and lag4 keep 4 rows whatever nb is. lags: None, each
+    subframe's lag random in [2 fs, 18 fs] with row 0 at the smallest
+    conceal lag (2 fs) and row 1 at the largest (18 fs); "2fs" or "18fs",
+    every lag there; "drift", each row's lags rising across the
+    subframes from a random start, as the conceal prep's drift does."""
     i32 = np.int32
     frame, lm = nb * 5 * fs, 20 * fs
     ob = rng.integers(-30000, 30000, (B, lm + frame)).astype(i32)
@@ -105,9 +107,40 @@ def silk_plc_inputs(rng, B, fs, nb, order):
     lag4 = rng.integers(2 * fs, 18 * fs + 1, (B, 4)).astype(i32)
     inv = rng.integers(1 << 24, 1 << 30, B).astype(i32)
     pg = rng.integers(1 << 10, 1 << 16, B).astype(i32)
-    lag4[0] = 2 * fs
-    lag4[1] = 18 * fs
+    if lags is None:
+        lag4[0] = 2 * fs
+        lag4[1:2] = 18 * fs
+    elif lags == "drift":
+        start = rng.integers(2 * fs, 14 * fs, (B, 1))
+        step = rng.integers(0, fs, (B, 1))
+        lag4[:] = np.minimum(start + step * np.arange(4)[None], 18 * fs)
+    else:
+        lag4[:] = {"2fs": 2, "18fs": 18}[lags] * fs
     return (ob, sl, rand, A, B4, lag4, inv, pg)
+
+
+def column_slices(arrays, device="cpu"):
+    """The (B, ...) or (B,) int32 arrays as column slices of one wider
+    int32 tensor, each starting at an odd column (so never 16-byte
+    aligned), as the SILK pool hands its staging columns to a kernel;
+    the columns between them hold 0x5A5A5A5A."""
+    B = len(arrays[0])
+    flat = [np.asarray(a, np.int32).reshape(B, -1) for a in arrays]
+    spans, o = [], 3
+    for f in flat:
+        spans.append(o)
+        o += f.shape[1] + 1
+        o += 1 - o % 2
+    wide = np.full((B, o), 0x5A5A5A5A, np.int32)
+    for f, at in zip(flat, spans):
+        wide[:, at:at + f.shape[1]] = f
+    t = torch.tensor(wide, device=device)
+    out = []
+    for a, f, at in zip(arrays, flat, spans):
+        v = t[:, at:at + f.shape[1]]
+        shape = np.shape(a)
+        out.append(v[:, 0] if len(shape) == 1 else v.unflatten(1, shape[1:]))
+    return out
 
 
 def port_synth_step(dm, pre, X, bandE, start, end, c1, c2, tr, **kw):
