@@ -13,10 +13,12 @@ Phases (any failure exits non-zero; there is no CPU path):
    timed: as device time (one call captured in a CUDA graph, replayed)
    and as eager stream time; beside each, its bound (the least time the
    card could take for the same work, from this run's inputs). The
-   tiled kernels, K2, K3, K7 and K8, are first held at widths that leave
+   tiled kernels, K2, K3, K6-K9, are first held at widths that leave
    their tiles ragged (K3 at every downsample factor), K2, K7 and K8 at
-   the lag edges, K7 and K8 also on misaligned column slices; K3 is
-   timed at both paths' shapes (CC 1, B 2048 and CC 2, B 1024);
+   the lag edges, K6-K9 also on misaligned column slices; K3 is timed at
+   both paths' shapes (CC 1, B 2048 and CC 2, B 1024); K6 as its bare
+   entry and as its fused one (the resampler's FIR as its epilogue, what
+   the SILK pools launch), beside the chain the fused entry replaced;
 4. the CELT path through StreamPool.run(): a mono pool of 2048 streams in
    K = 64 windows and a stereo pool of 1024 streams per frame, every
    stream bit-equal to tests/golden; then a small CELT pool with packet
@@ -24,10 +26,10 @@ Phases (any failure exits non-zero; there is no CPU path):
    once, just before the first pool, and read once after the last pool
    of phase 6; each pool prints the launches it made;
 5. the mono SILK path: a 2048-stream WB pool in K = 64 windows (one
-   device bucket of 2048 rows: kernels K7 and K6) and a 48-stream pool
-   over the NB, MB and WB fixtures in K = 3 windows (buckets of 16 rows:
-   K5 and K6), every stream bit-equal to tests/golden and the small pool
-   equal between card and CPU;
+   device bucket of 2048 rows: kernels K7 and K6's fused entry) and a
+   48-stream pool over the NB, MB and WB fixtures in K = 3 windows
+   (buckets of 16 rows: K5 and K6's fused entry), every stream bit-equal
+   to tests/golden and the small pool equal between card and CPU;
 6. the lossy mono SILK path: 2048 WB streams in K = 64 windows, RFC mode
    with concealment (rfc_plc), a tenth of the rows lost on every step,
    once without and once with in-band FEC; no golden exists for RFC
@@ -410,18 +412,22 @@ def check_celt_kernels(dev, card, sm_hz):
 def check_silk_kernels(dev, card, sm_hz):
     """K5-K7 against their plain versions on the card (bit-equal),
     timed at the SILK path's shapes: K7 at B = 2048, WB (fs 16, nb 4,
-    order 16), with the other (fs, nb, order) sets for equality; K6 at
-    B = 2048, n = 160, with every chunk length of both SILK pools for
-    equality; K5 at the WB bucket of the 48-stream pool (B = 16, n = 80,
-    order 16), with its NB and MB buckets for equality."""
+    order 16), with the other (fs, nb, order) sets for equality; K6's
+    bare entry at n = 160, B = 2048 and 16, with every chunk length of
+    both SILK pools for equality, and its fused entry (the whole iir_fir
+    call, which the pools run) on both blocks of a frame at every rate,
+    timed at WB, n = 304, B = 2048 and 16; K5 at the WB bucket of the
+    48-stream pool (B = 16, n = 80, order 16), with its NB and MB buckets
+    for equality."""
     import numpy as np
     import torch
     from esp32_opus_player_tpu_torch.ops.silk.core_kernel import (
         silk_core, silk_core_ref)
     from esp32_opus_player_tpu_torch.ops.silk.lpc_synth import (
         lpc_synth, lpc_synth_ref)
-    from esp32_opus_player_tpu_torch.ops.silk.torch_core import up2_hq_scan
-    from esp32_opus_player_tpu_torch.ops.silk.up2_hq import up2_hq
+    from esp32_opus_player_tpu_torch.ops.silk.torch_core import (
+        _resampler_spec, iir_fir_chunks, up2_hq_scan)
+    from esp32_opus_player_tpu_torch.ops.silk.up2_hq import up2_fir, up2_hq
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_port_util import silk_core_inputs
     rng = np.random.default_rng(2025)
@@ -475,10 +481,12 @@ def check_silk_kernels(dev, card, sm_hz):
            f"widths, all lags 2 fs / 18 fs and misaligned slices; timed: "
            f"(16, 4, 16), B={B}", res["K7"])
 
-    # K6: every chunk length the resampler gives it (the first block of
-    # fs samples, then batchSize chunks of the rest: WB 16, 160, 144; MB
-    # 12, 120, 108; NB 8, 80, 72), at the WB pool's B = 2048 and the
-    # small pool's 16 rows; timed at one 10 ms chunk of a WB frame
+    # K6, bare entry: every chunk length the resampler gave it before
+    # the fused entry (the first block of fs samples, then batchSize
+    # chunks of the rest: WB 16, 160, 144; MB 12, 120, 108; NB 8, 80,
+    # 72), at the WB pool's B = 2048 and the small pool's 16 rows; timed
+    # at one 10 ms chunk of a WB frame at both widths. Only the up2 kind
+    # (out_fs = 2 fs_in) calls it on a path; no pool reaches that yet.
     err = 0
     for Bn, n in ([(B, n) for n in (16, 144, 160)]
                   + [(16, n) for n in (8, 80, 72, 12, 120, 108, 16, 160,
@@ -491,18 +499,75 @@ def check_silk_kernels(dev, card, sm_hz):
             raise SystemExit(f"K6 (B {Bn}, n {n}) differs from its plain "
                              f"version")
         err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
-        if (Bn, n) == (B, 160):
+        if n == 160:
             # reads: input and state; writes: 2n outputs and the state.
             # Per input sample: 6 allpass sections (sum, smulwb, 2 sums:
             # 9), the two outputs' rounding and clip (5 each) and the
             # input shift (1).
-            res["K6"] = dict(**timings(lambda: up2_hq(S, x),
-                                       lambda: up2_hq_scan(S, x), 20),
-                             **bound(B * 4 * (n + 6 + 2 * n + 6),
-                                     B * n * 65, sm_hz))
-    res["K6"]["max_abs_err"] = err
+            t = dict(**timings(lambda: up2_hq(S, x),
+                               lambda: up2_hq_scan(S, x), 20),
+                     **bound(Bn * 4 * (n + 6 + 2 * n + 6), Bn * n * 65,
+                             sm_hz))
+            if Bn == B:
+                res["K6"] = t
+            else:
+                t16 = t
+    res["K6"].update(max_abs_err=err, ms_b16=t16["ms"],
+                     bound_ms_b16=t16["bound_ms"])
     report(card, f"K6 up2_hq, all 9 chunk lengths; timed: n=160, B={B}",
            res["K6"])
+    report(card, "K6 up2_hq; timed: n=160, B=16", t16)
+
+    # K6, fused entry (one iir_fir call: the allpass, then the FIR
+    # interpolation as its epilogue): each rate's two calls of a frame
+    # (fs samples, then 19 fs in chunks of 10 fs and 9 fs), the state
+    # carried, the blocks misaligned column slices, at B = 2048 and 16;
+    # timed at WB on the 19 fs block at both widths, beside the chain it
+    # replaces (K6's bare entry, then the FIR in torch)
+    for Bn in (B, 16):
+        for fs in (8, 12, 16):
+            spec = _resampler_spec(fs, 48)
+            kw = dict(batch_size=spec["batch_size"],
+                      inv_ratio=spec["inv_ratio"])
+            wide = dev_t(rng.integers(-32768, 32768, (Bn, 20 * fs + 7))
+                         .astype(np.int32))
+            st = (dev_t(rng.integers(-(1 << 31), 1 << 31, (Bn, 6)).astype(
+                np.int32)), dev_t(rng.integers(-32768, 32768, (Bn, 8))
+                                  .astype(np.int32)))
+            for lo, hi in ((3, 3 + fs), (3 + fs, 3 + 20 * fs)):
+                x = wide[:, lo:hi]
+                got = up2_fir(*st, x, **kw)
+                want = iir_fir_chunks(*st, x, **kw)
+                if not same(got, want) or any(
+                        g.shape != w.shape for g, w in zip(got, want)):
+                    raise SystemExit(f"K6 fused (B {Bn}, fs {fs}, n "
+                                     f"{hi - lo}) differs from its plain "
+                                     f"version")
+                err = max(err, *(max_err(g, w) for g, w in zip(got, want)))
+                if fs == 16 and hi - lo > fs:
+                    # reads: block and both states; writes: the outputs
+                    # and both states. Per input sample the allpass (65,
+                    # as the bare entry); per output the index and phase
+                    # (5), 8 taps (multiply and add, 16), rounding and
+                    # clip (5).
+                    n, n_out = hi - lo, got[0].shape[1]
+                    ft = dict(**timings(
+                        lambda: up2_fir(*st, x, **kw),
+                        lambda: iir_fir_chunks(*st, x, **kw), 20),
+                        **bound(Bn * 4 * (n + 14 + n_out + 14),
+                                Bn * (n * 65 + n_out * 26), sm_hz),
+                        chain_ms=device_ms(lambda: iir_fir_chunks(
+                            *st, x, up2=up2_hq, **kw), 20))
+                    report(card, f"K6 up2_fir (fused), NB/MB/WB, both "
+                           f"blocks of a frame, B 2048 and 16; timed: WB, "
+                           f"n={n}, B={Bn} (K6 bare then the torch FIR: "
+                           f"{ft['chain_ms']:.4f} ms)", ft)
+                    pre = "fused_" if Bn == B else "fused_b16_"
+                    res["K6"].update({pre + k: ft[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "chain_ms")})
+                st = got[1:]
+    res["K6"]["max_abs_err"] = err
 
     # K5: the LPC recurrence of one subframe in each bucket of the
     # 48-stream pool (16 rows: NB n 40 and MB n 60 at order 10, WB n 80
@@ -541,9 +606,10 @@ def check_loss_kernels(dev, card, sm_hz):
     B = 1, 15, 17, 2047 and 2048 (rows 0 and 1 at the lag edges 2 fs and
     18 fs) and at B = 2048 with every lag at 2 fs, at 18 fs or rising,
     its operands column slices of one wider tensor, timed at WB
-    (16, 4, 16); K9 at B = 2048, frame 320, order 16, with every row
-    masked on and with the pool's mask (every 10th row lost), timed with
-    the latter."""
+    (16, 4, 16); K9 at orders 16 (frame 320) and 10 (frame 160) at
+    B = 1, 15, 17, 2047 and 2048 with no row, every row and every 10th
+    row masked on, its operands column slices of one wider tensor, timed
+    with the pool's mask (every 10th row lost) at B = 2048, order 16."""
     import numpy as np
     import torch
     from esp32_opus_player_tpu_torch.ops.silk.cng_kernel import cng_add
@@ -597,32 +663,44 @@ def check_loss_kernels(dev, card, sm_hz):
            f"operands as misaligned column slices; timed: (16, 4, 16), "
            f"B={B}", res["K8"])
 
-    frame, order = 320, 16
-    xq = dev_t(rng.integers(-32768, 32768, (B, frame)).astype(np.int32))
-    exc = dev_t(rng.integers(-(1 << 16), 1 << 16, (B, frame)).astype(
-        np.int32))
-    A = dev_t(rng.integers(-(1 << 12), 1 << 12, (B, order)).astype(np.int32))
-    gain = dev_t(rng.integers(1 << 8, 1 << 14, B).astype(np.int32))
-    st0 = dev_t(rng.integers(-(1 << 31), 1 << 31, (B, 16)).astype(np.int32))
-    err = 0
-    for m in (np.ones(B, bool), np.arange(B) % 10 == 3):
-        mask = dev_t(m)
-        got = cng_add(xq, exc, A, gain, st0, mask, frame=frame, order=order)
-        want = cng_add_xla(xq, exc, A, gain, st0, mask, frame=frame,
-                           order=order)
+    # K9: widths around a block's 16 streams, with no row, every row and
+    # every 10th row masked on, at both orders (WB frame 320 at order 16,
+    # NB frame 160 at order 10); the operands column slices of one wider
+    # tensor at odd offsets (as the lossy frame passes them); timed at
+    # B = 2048, frame 320, order 16, every 10th row on (the pools' share)
+    def k9_case(Bn, frame, order, masks):
+        args = [rng.integers(-32768, 32768, (Bn, frame)),
+                rng.integers(-(1 << 16), 1 << 16, (Bn, frame)),
+                rng.integers(-(1 << 12), 1 << 12, (Bn, 16)),
+                rng.integers(1 << 8, 1 << 14, Bn),
+                rng.integers(-(1 << 31), 1 << 31, (Bn, 16))]
+        m = dict(off=np.zeros(Bn, bool), on=np.ones(Bn, bool),
+                 tenth=np.arange(Bn) % 10 == 3)[masks]
+        targs = column_slices(args, dev) + [dev_t(m)]
+        kw = dict(frame=frame, order=order)
+        got, want = cng_add(*targs, **kw), cng_add_xla(*targs, **kw)
         if not same(got, want):
-            raise SystemExit("K9 differs from its plain version")
-        err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
+            raise SystemExit(f"K9 (B {Bn}, frame {frame}, order {order}, "
+                             f"mask {masks}) differs from its plain "
+                             f"version")
+        return m, targs, kw, max(max_err(got[0], want[0]),
+                                 max_err(got[1], want[1]))
+
+    err = 0
+    for frame, order in ((320, 16), (160, 10)):
+        for Bn in (1, 15, 17, 2047, B):
+            for masks in ("off", "on", "tenth"):
+                err = max(err, k9_case(Bn, frame, order, masks)[3])
+    m, targs, kw, e = k9_case(B, 320, 16, "tenth")
     res["K9"] = dict(
-        max_abs_err=err,
-        **timings(lambda: cng_add(xq, exc, A, gain, st0, mask, frame=frame,
-                                  order=order),
-                  lambda: cng_add_xla(xq, exc, A, gain, st0, mask,
-                                      frame=frame, order=order), 20),
-        **bound(*k9_work(m, frame, order), sm_hz))
-    report(card, f"K9 cng_add, mask all on and every 10th row; timed: "
-           f"every 10th row, frame={frame}, order={order}, B={B}",
-           res["K9"])
+        max_abs_err=max(err, e),
+        **timings(lambda: cng_add(*targs, **kw),
+                  lambda: cng_add_xla(*targs, **kw), 20),
+        **bound(*k9_work(m, kw["frame"], kw["order"]), sm_hz))
+    report(card, f"K9 cng_add, orders 16 and 10, B in (1, 15, 17, 2047, "
+           f"2048), masks off / on / every 10th row, operands as "
+           f"misaligned column slices; timed: every 10th row, frame 320, "
+           f"order 16, B={B}", res["K9"])
     return res
 
 
@@ -724,22 +802,32 @@ def main() -> int:
     # Every path below counts: each wrapper's count is set to 0 here, just
     # before the first pool, and read once after the last; `counted`
     # prints what one pool launched.
-    wrappers = {"K1": fft.fft_blocks, "K2": comb.comb_filter_step_T,
-                "K3": deemph.deemphasis_T, "K4": comb.comb_deemph_step_T,
-                "K5": lpc_synth.lpc_synth, "K6": up2_hq.up2_hq,
-                "K7": core_kernel.silk_core,
-                "K8": plc_kernel.silk_plc_conceal, "K9": cng_kernel.cng_add}
+    # (K6's two entries launch one kernel; "K6 fused" counts the fused
+    # one apart as well)
+    wrappers = {"K1": [fft.fft_blocks], "K2": [comb.comb_filter_step_T],
+                "K3": [deemph.deemphasis_T],
+                "K4": [comb.comb_deemph_step_T],
+                "K5": [lpc_synth.lpc_synth],
+                "K6": [up2_hq.up2_hq, up2_hq.up2_fir],
+                "K6 fused": [up2_hq.up2_fir],
+                "K7": [core_kernel.silk_core],
+                "K8": [plc_kernel.silk_plc_conceal],
+                "K9": [cng_kernel.cng_add]}
+
+    def launch_counts():
+        return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
 
     def counted(label, run):
-        before = {k: w.launches for k, w in wrappers.items()}
+        before = launch_counts()
         out = run()
-        made = {k: w.launches - before[k] for k, w in wrappers.items()
-                if w.launches != before[k]}
+        made = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
         print(f"[{card}] launches in {label}: {made}")
         return out
 
-    for w in wrappers.values():
-        w.launches = 0
+    for ws in wrappers.values():
+        for w in ws:
+            w.launches = 0
 
     # the CELT path
     counted("the CELT mono pool", lambda: run_pool(
@@ -814,7 +902,7 @@ def main() -> int:
     print("compat-loss SILK pool (4 WB streams, K=3, every 7th packet "
           "lost): card == tests/golden loss7")
 
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = launch_counts()
     print(f"[{card}] launches over every pool: {launches}")
     for k, v in launches.items():
         # K4 is on no path, as in the JAX package: the CELT frame step
@@ -851,6 +939,11 @@ def main() -> int:
     kernels[2].update(ms_cc2=res["K3"]["ms_cc2"],
                       bound_ms_cc2=res["K3"]["bound_ms_cc2"])
     kernels[3]["k2_then_k3_ms"] = res["K4"]["k2_then_k3_ms"]
+    # K6 at the 48-stream pool's 16 rows; its fused entry (what the SILK
+    # pools launch) beside the chain it replaced, K6 then the torch FIR
+    kernels[5].update(fused_launches=launches["K6 fused"], **{
+        k: v for k, v in res["K6"].items()
+        if k.startswith(("fused_", "ms_b16", "bound_ms_b16"))})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -114,12 +114,15 @@ def _bind(so):
     so.silk_lpc_synth.argtypes = [p, i, i, p, i, p, p, p, p]
     so.silk_up2_hq.restype = i
     so.silk_up2_hq.argtypes = [p, i, i, ll, p, p, p, p]
+    so.silk_up2_fir.restype = i
+    so.silk_up2_fir.argtypes = [p, ll, p, ll, p, ll, i, i, i, i, i, p, i, p,
+                                p, p]
     so.silk_core.restype = i
     so.silk_core.argtypes = [p, p, ll, p, p, p, i, i, i, i, p]
     so.silk_plc.restype = i
     so.silk_plc.argtypes = [p, p, ll, p, p, i, i, i, i, p]
     so.silk_cng.restype = i
-    so.silk_cng.argtypes = [p, ll, p, ll, p, p, p, p, p, p, i, i, i, p]
+    so.silk_cng.argtypes = [p, p, p, p, i, i, i, p]
     so.celt_comb_deemph.restype = i
     so.celt_comb_deemph.argtypes = [p, i, i, i, p, p, p, p, p, p, p]
     so.otpu_cuda_error_string.restype = ctypes.c_char_p

@@ -27,17 +27,6 @@ def silk_core_ref(*args, fs_khz: int, nb_subfr: int, order: int):
                                order=order, lpc=lpc_synth_ref)
 
 
-def _rows(t, width: int, what: str):
-    """t as (B, width) int32 with unit column stride (rows may be any
-    stride apart)."""
-    t = t.to(I32)
-    if t.stride(-1) != 1:
-        t = t.contiguous()
-    if t.dim() != 2 or t.shape[1] < width:
-        raise ValueError(f"{what} must be (B, >= {width}) int32")
-    return t
-
-
 def _operand(t, tail: tuple, what: str, dtypes=(I32,)):
     """t as a (B, *tail) operand the kernel can read in place: one of
     `dtypes` (else cast to int32), the dimensions after the first packed

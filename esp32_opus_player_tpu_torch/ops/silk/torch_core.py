@@ -16,8 +16,9 @@ result relies on int32 overflow inside torch.
 On a CUDA tensor `silk_core_frame` launches kernel K7 (ops/silk/
 core_kernel.py) for 128 rows or more and the chunked form below it,
 whose LPC recurrence is kernel K5 (ops/silk/lpc_synth.py); the 2x
-allpass inside `resample_batch` is kernel K6 (ops/silk/up2_hq.py). On a
-CPU tensor every kernel's wrapper runs its plain version.
+allpass inside `resample_batch` is kernel K6 (ops/silk/up2_hq.py), whose
+fused entry also does the IIR-FIR interpolation around it. On a CPU
+tensor every kernel's wrapper runs its plain version.
 """
 from __future__ import annotations
 
@@ -379,6 +380,43 @@ def _resampler_spec(fs_in_khz: int, fs_out_khz: int) -> dict:
     return spec
 
 
+def resampler_chunks(n: int, batch_size: int) -> list:
+    """(offset, length) of the batchSize chunks of an n-sample block (at
+    least one, as the reference's do-while)."""
+    out, off = [], 0
+    while True:
+        n_in = min(n - off, batch_size)
+        out.append((off, n_in))
+        off += n_in
+        if off >= n:
+            return out
+
+
+def iir_fir_out_len(n: int, batch_size: int, inv_ratio: int) -> int:
+    """Outputs of one private_IIR_FIR call over n samples: per chunk the
+    indices 0, inv, 2 inv, ... below n_in << 17."""
+    return sum(-(-(n_in << 17) // inv_ratio)
+               for _, n_in in resampler_chunks(n, batch_size))
+
+
+def iir_fir_chunks(sIIR, sFIR, block, *, batch_size: int, inv_ratio: int,
+                   up2=up2_hq_scan):
+    """private_IIR_FIR (:3481) batched, the plain version of K6's fused
+    entry: batchSize chunks of block (B, n), each the 2x allpass `up2`
+    (K6's plain version by default), buf = [sFIR[:, :8], up], the FIR
+    interpolation of buf, and sFIR' = buf[:, 2 n_in : 2 n_in + 8] (the
+    columns past 8 kept). Returns (out (B, iir_fir_out_len), sIIR',
+    sFIR')."""
+    outs = []
+    for off, n_in in resampler_chunks(block.shape[-1], batch_size):
+        up, sIIR = up2(sIIR, block[:, off:off + n_in])
+        buf = torch.cat([sFIR[:, :8], up], dim=1)
+        outs.append(iir_fir_interpol(buf, n_in << 17, inv_ratio))
+        sFIR = torch.cat([buf[:, 2 * n_in:2 * n_in + 8], sFIR[:, 8:]],
+                         dim=1)
+    return torch.cat(outs, dim=1), sIIR, sFIR
+
+
 def sfir_width(fs_in_khz: int, fs_out_khz: int) -> int:
     """FIR-state columns a pool bucket carries for this rate pair
     (sFIR_i16[8] for IIR_FIR, sFIR_i32[order] for down-FIR; up2 and copy
@@ -394,8 +432,9 @@ def resample_batch(sIIR, sFIR, delay_buf, inp, *, fs_in_khz: int,
     Returns (out (B, in_len*out/in), sIIR', sFIR', delay_buf'); the
     inputs are not written. Mirrors the reference's two calls and
     batchSize chunking (the rounded-up invRatio makes output counts
-    chunking-dependent)."""
-    from .up2_hq import up2_hq
+    chunking-dependent). Kind iir_fir is one call of K6's fused entry
+    (`up2_hq.up2_fir`) per block, kind up2 one of its bare entry."""
+    from .up2_hq import up2_fir, up2_hq
     spec = _resampler_spec(fs_in_khz, fs_out_khz)
     delay = spec["delay"]
     n_samples = fs_in_khz - delay
@@ -404,27 +443,9 @@ def resample_batch(sIIR, sFIR, delay_buf, inp, *, fs_in_khz: int,
     db = torch.cat([delay_buf[:, :delay], inp[:, :n_samples],
                     delay_buf[:, delay + n_samples:]], dim=1)
 
-    def chunks(n):
-        """(offset, length) of the batchSize chunks of an n-sample
-        block (at least one, as the reference's do-while)."""
-        out, off = [], 0
-        while True:
-            n_in = min(n - off, batch_size)
-            out.append((off, n_in))
-            off += n_in
-            if off >= n:
-                return out
-
     def iir_fir(sIIR, sFIR, block):
-        """private_IIR_FIR (:3481): batchSize chunks, state carried."""
-        outs = []
-        for off, n_in in chunks(block.shape[-1]):
-            up, sIIR = up2_hq(sIIR, block[:, off:off + n_in])
-            buf = torch.cat([sFIR[:, :8], up], dim=1)
-            outs.append(iir_fir_interpol(buf, n_in << 17, inv_ratio))
-            sFIR = torch.cat([buf[:, 2 * n_in:2 * n_in + 8], sFIR[:, 8:]],
-                             dim=1)
-        return torch.cat(outs, dim=1), sIIR, sFIR
+        return up2_fir(sIIR, sFIR, block, batch_size=batch_size,
+                       inv_ratio=inv_ratio)
 
     def down_fir(sIIR, sFIR, block):
         """private_down_FIR (:3420): AR2 prefilter into a Q8 buffer, then
@@ -432,7 +453,7 @@ def resample_batch(sIIR, sFIR, delay_buf, inp, *, fs_in_khz: int,
         a0, a1 = int(spec["coefs"][0]), int(spec["coefs"][1])
         order = spec["order"]
         outs = []
-        for off, n_in in chunks(block.shape[-1]):
+        for off, n_in in resampler_chunks(block.shape[-1], batch_size):
             ar2, s2 = ar2_scan(sIIR[:, :2], block[:, off:off + n_in], a0,
                                a1)
             sIIR = torch.cat([s2, sIIR[:, 2:]], dim=1)

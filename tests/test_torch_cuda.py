@@ -1,14 +1,17 @@
 """The hand-written CUDA kernels against their plain torch twins on an
 NVIDIA card, bit for bit, at the main path's width (B = 2048 streams;
-K2, K3, K7 and K8 also at widths that leave their tiles ragged), and the
-port's pool on the card against tests/golden. Needs a card;
+K2, K3, K6, K7, K8 and K9 also at widths that leave their tiles ragged),
+and the port's pool on the card against tests/golden. Needs a card;
 without one every test skips. Run on the card from the repository root:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 (--noconftest: tests/conftest.py imports JAX, which this file needs
 not.)"""
+import json
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -29,6 +32,34 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+def _device_kernels(setup: str) -> list:
+    """The device kernels one `call()` makes, as torch.profiler sees
+    them, in a fresh interpreter: `setup` (Python, with `t` this module
+    and `dev` the card) defines `call`. A profiling session that follows
+    other sessions and the pool tests in one process saw no device
+    events on the H100, so each such check gets a process of its own."""
+    code = "\n".join([
+        "import json, sys, torch",
+        f"sys.path[:0] = [{str(ROOT.parent)!r}, {str(ROOT)!r}]",
+        "import test_torch_cuda as t",
+        "from torch.profiler import ProfilerActivity, profile",
+        "dev = torch.device('cuda')",
+        setup,
+        "call()                     # build, shared-memory attribute",
+        "torch.cuda.synchronize()",
+        "acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]",
+        "with profile(activities=acts) as prof:",
+        "    call()",
+        "    torch.cuda.synchronize()",
+        "cuda = torch.autograd.DeviceType.CUDA",
+        "print(json.dumps([e.name for e in prof.events()",
+        "                  if e.device_type == cuda]))"])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.mark.parametrize("shift,Bblk", PLANS)
@@ -218,6 +249,50 @@ def test_up2_kernel_matches_plain(dev, n):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("rows", [B, 16, 1, 2047])
+@pytest.mark.parametrize("fs", [8, 12, 16])
+def test_up2_fir_kernel_matches_plain(dev, fs, rows):
+    """K6's fused entry over one frame's two iir_fir calls (fs samples,
+    then 19 fs in chunks of 10 fs and 9 fs), the state of the first
+    carried into the second, against its plain version (the chunk loop
+    over up2_hq_scan), at 48 kHz out; the blocks misaligned column slices
+    of one wider tensor, sIIR over the whole int32 range."""
+    from esp32_opus_player_tpu_torch.ops.silk import torch_core as tc
+    from esp32_opus_player_tpu_torch.ops.silk.up2_hq import up2_fir
+    rng = np.random.default_rng(fs * 10 + rows)
+    spec = tc._resampler_spec(fs, 48)
+    kw = dict(batch_size=spec["batch_size"], inv_ratio=spec["inv_ratio"])
+    wide = t32(rng.integers(-32768, 32768, (rows, 20 * fs + 7)), dev)
+    got = want = (t32(rng.integers(-2 ** 31, 2 ** 31, (rows, 6)), dev),
+                  t32(rng.integers(-32768, 32768, (rows, 8)), dev))
+    for lo, hi in ((3, 3 + fs), (3 + fs, 3 + 20 * fs)):
+        n = up2_fir.launches
+        g = up2_fir(*got[-2:], wide[:, lo:hi], **kw)
+        assert up2_fir.launches == n + 1
+        w = tc.iir_fir_chunks(*want[-2:], wide[:, lo:hi], **kw)
+        torch.cuda.synchronize()
+        for a, b, name in zip(g, w, ("out", "sIIR", "sFIR")):
+            assert a.shape == b.shape and torch.equal(a, b), (lo, name)
+        got, want = g, w
+
+
+def test_up2_fir_is_one_launch(dev):
+    """One fused call on a misaligned column slice is one device kernel:
+    no copy, no cast, no cat (torch.profiler's device events)."""
+    names = _device_kernels(
+        "import numpy as np\n"
+        "from esp32_opus_player_tpu_torch.ops.silk import torch_core as tc\n"
+        "from esp32_opus_player_tpu_torch.ops.silk.up2_hq import up2_fir\n"
+        "rng = np.random.default_rng(3)\n"
+        "spec = tc._resampler_spec(16, 48)\n"
+        "x = t.t32(rng.integers(-32768, 32768, (t.B, 309)), dev)[:, 5:]\n"
+        "S = t.t32(rng.integers(-2 ** 31, 2 ** 31, (t.B, 6)), dev)\n"
+        "F = t.t32(rng.integers(-32768, 32768, (t.B, 8)), dev)\n"
+        "call = lambda: up2_fir(S, F, x, batch_size=spec['batch_size'], "
+        "inv_ratio=spec['inv_ratio'])")
+    assert len(names) == 1 and "up2_kernel" in names[0], names
+
+
 @pytest.mark.parametrize("order", [16, 10])
 def test_lpc_kernel_matches_plain(dev, order):
     from esp32_opus_player_tpu_torch.ops.silk.lpc_synth import (
@@ -318,19 +393,12 @@ def test_plc_conceal_kernel_lag_edges(dev, fs, nb, order, lags):
 def test_plc_conceal_is_one_launch(dev):
     """One call on misaligned column slices is one device kernel: no
     copy, no cast, no scratch fill (torch.profiler's device events)."""
-    from torch.profiler import ProfilerActivity, profile
-    from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import (
-        silk_plc_conceal)
-    args = _plc_args(dev, B, 16, 4, 16)
-    kw = dict(fs_khz=16, nb_subfr=4, order=16)
-    silk_plc_conceal(*args, **kw)       # build, shared-memory attribute
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        silk_plc_conceal(*args, **kw)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = _device_kernels(
+        "from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import "
+        "silk_plc_conceal\n"
+        "args = t._plc_args(dev, t.B, 16, 4, 16)\n"
+        "call = lambda: silk_plc_conceal(*args, fs_khz=16, nb_subfr=4, "
+        "order=16)")
     assert len(names) == 1 and "plc_conceal_kernel" in names[0], names
 
 
@@ -383,3 +451,49 @@ def test_lossy_silk_pool_card_matches_cpu(dev, kw, fec):
                                                                  fec=fec)
     for i, (a, b) in enumerate(zip(card, cpu)):
         assert np.array_equal(a, b), i
+
+
+def _cng_args(dev, rows, frame, masks):
+    """K9's operands as the lossy frame passes them: xq, exc, A, gain
+    and the state column slices of one wider (staging-shaped) tensor at
+    odd offsets, the state over the whole int32 range; the mask a bool
+    tensor: all off, all on or every 10th row on."""
+    from torch_port_util import column_slices
+    rng = np.random.default_rng(frame + rows)
+    args = [rng.integers(-32768, 32768, (rows, frame)),
+            rng.integers(-(1 << 16), 1 << 16, (rows, frame)),
+            rng.integers(-(1 << 12), 1 << 12, (rows, 16)),
+            rng.integers(1 << 8, 1 << 14, rows),
+            rng.integers(-2 ** 31, 2 ** 31, (rows, 16))]
+    mask = dict(off=np.zeros(rows, bool), on=np.ones(rows, bool),
+                tenth=np.arange(rows) % 10 == 3)[masks]
+    return column_slices(args, dev) + [torch.as_tensor(mask, device=dev)]
+
+
+@pytest.mark.parametrize("masks", ["off", "on", "tenth"])
+@pytest.mark.parametrize("rows", [1, 15, 17, 2047])
+@pytest.mark.parametrize("frame,order", [(320, 16), (160, 10)])
+def test_cng_kernel_sliced(dev, frame, order, rows, masks):
+    """K9 at widths on both sides of its 16-stream block, its operands
+    column slices of one staging-shaped tensor, with no row, every row
+    and every 10th row masked on."""
+    from esp32_opus_player_tpu_torch.ops.silk.cng_kernel import cng_add
+    from esp32_opus_player_tpu_torch.ops.silk.torch_plc import cng_add_xla
+    args = _cng_args(dev, rows, frame, masks)
+    n = cng_add.launches
+    got = cng_add(*args, frame=frame, order=order)
+    assert cng_add.launches == n + 1
+    want = cng_add_xla(*args, frame=frame, order=order)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_cng_is_one_launch(dev):
+    """One call on column slices and a bool mask is one device kernel:
+    no copy, no cast (torch.profiler's device events)."""
+    names = _device_kernels(
+        "from esp32_opus_player_tpu_torch.ops.silk.cng_kernel import "
+        "cng_add\n"
+        "args = t._cng_args(dev, t.B, 320, 'tenth')\n"
+        "call = lambda: cng_add(*args, frame=320, order=16)")
+    assert len(names) == 1 and "cng_kernel" in names[0], names

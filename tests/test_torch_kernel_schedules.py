@@ -34,7 +34,24 @@ subframes, and LPC states over the whole int32 range.
 
 K3 (csrc/celt_deemph.cu) takes its Q15 product as one high-word
 multiply; `test_deemph_product_is_a_high_word` holds that identity over
-the int32 range."""
+the int32 range.
+
+K6 (csrc/silk_up2.cu) does a whole IIR-FIR resampler call in one launch:
+two threads per stream walk the even and the odd allpass chain over the
+whole block (the state carries from chunk to chunk), each product one
+high-word multiply, into one buffer U = [sFIR[:8], up]; then the FIR
+outputs of chunk c read U from 2 c batchSize on, at the output indices
+that restart per chunk, the 8-tap sum taken modulo 2^32.
+`_up2_fir_by_schedule` is that schedule in numpy and is held to the JAX
+package's resample_batch for 8, 12 and 16 kHz into 48 kHz, 20 and 10 ms
+blocks, the state carried over two frames; a changed chunking is shown
+to change the output count or bits.
+
+K9 (csrc/silk_cng.cu) walks only the rows whose mask is on, one thread
+each, the LPC in transposed form with its running sums built once from
+the incoming state, and copies the other rows and their states.
+`_cng_by_schedule` is that in numpy and is held to the Pallas kernel in
+interpret mode and to jax_plc.cng_add at orders 10 and 16."""
 import functools
 
 import numpy as np
@@ -47,10 +64,11 @@ from esp32_opus_player_tpu.ops.celt import jax_synthesis as js
 from esp32_opus_player_tpu.ops.silk import jax_core as sjc
 from esp32_opus_player_tpu.ops.silk import jax_plc as sjp
 from esp32_opus_player_tpu.ops.silk.pallas_core import (
-    silk_plc_conceal_pallas)
+    cng_add_pallas, silk_plc_conceal_pallas)
 from esp32_opus_player_tpu.ops.celt.pallas_comb import (
     comb_filter_step_T as jax_comb_step_T)
 from esp32_opus_player_tpu_torch.ops.celt import comb
+from esp32_opus_player_tpu_torch.ops.silk import torch_core as tc
 from esp32_opus_player_tpu_torch.ops.silk.core_kernel import silk_core_ref
 
 from torch_port_util import (DBS, OV, assert_equal, comb_params,
@@ -379,3 +397,228 @@ def test_deemph_product_is_a_high_word():
     c = _w32(27853 << 17)
     assert c < 0
     assert_equal(_w32(_mulhi(t, c) + t), want, "smul")
+
+
+# ---- K6: the up2 allpass walk and the IIR-FIR epilogue -------------------
+
+UP2_COEFS = [(1746, 14986, -26453), (6854, 25769, -9994)]
+FIR_12 = np.asarray(tc._FRAC_FIR_12, np.int64)
+# a phase's 8 taps as the kernel's table holds them
+FIR_TAPS = np.stack([np.concatenate([FIR_12[t], FIR_12[11 - t][::-1]])
+                     for t in range(12)])
+
+
+def test_up2_products_are_high_words():
+    """K6 takes smulwb(y, c) as __mulhi(y, c << 16): equal for y over the
+    whole int32 range and each of the six allpass coefficients (|c| <
+    2^15)."""
+    rng = np.random.default_rng(6)
+    p2 = np.array([1 << k for k in range(31)], np.int64)
+    y = np.concatenate([[0, -1, 2 ** 31 - 1, -2 ** 31], p2, p2 - 1, -p2,
+                        -p2 - 1, rng.integers(-2 ** 31, 2 ** 31, 200000)])
+    for c in (c for cs in UP2_COEFS for c in cs):
+        assert_equal(_mulhi(y, _w32(c << 16)), _smulwb(y, c), f"c {c}")
+
+
+def _fir_plan(n, batch, inv):
+    """The fused entry's plan, as silk_up2_fir computes it: outputs per
+    full chunk, and in all."""
+    count = lambda n_in: -(-(n_in << 17) // inv)
+    full, last = divmod(n, batch)
+    if last == 0 and full > 0:
+        full, last = full - 1, batch
+    return count(batch), full * count(batch) + count(last)
+
+
+def _up2_fir_by_schedule(sIIR, sFIR, x, batch, inv):
+    """One iir_fir call as K6's fused entry schedules it, int64 numpy
+    with explicit wraps: (out, sIIR', sFIR')."""
+    sIIR, sFIR, x = (np.asarray(a, np.int64) for a in (sIIR, sFIR, x))
+    B, n = x.shape
+    U = np.full((B, 8 + 2 * n), 0x5A5A5A5A, np.int64)
+    U[:, :8] = sFIR[:, :8]
+    s_out = np.empty((B, 6), np.int64)
+    # phase 1: each chain walks the whole block alone
+    for p, cs in enumerate(UP2_COEFS):
+        h0, h1, h2 = (_w32(c << 16) for c in cs)
+        S0, S1, S2 = (sIIR[:, 3 * p + j] for j in range(3))
+        for t in range(n):
+            in32 = _w32(x[:, t] << 10)
+            X = _mulhi(_w32(in32 - S0), h0)
+            out1, S0 = _w32(S0 + X), _w32(in32 + X)
+            X = _mulhi(_w32(out1 - S1), h1)
+            out2, S1 = _w32(S1 + X), _w32(out1 + X)
+            Y = _w32(out2 - S2)
+            X = _w32(Y + _mulhi(Y, h2))
+            o, S2 = _w32(S2 + X), _w32(out2 + X)
+            U[:, 8 + 2 * t + p] = _sat16(_rshift_round(o, 10))
+        s_out[:, 3 * p:3 * p + 3] = np.stack([S0, S1, S2], 1)
+    # phase 2: chunk c's outputs from U[2 c batch:], indices restarting
+    m_full, n_out = _fir_plan(n, batch, inv)
+    out = np.empty((B, n_out), np.int64)
+    for c, j0 in enumerate(range(0, n_out, m_full)):
+        idx = np.arange(min(m_full, n_out - j0), dtype=np.int64) * inv
+        base = 2 * c * batch + (idx >> 16)
+        taps = U[:, base[:, None] + np.arange(8)].astype(np.uint32)
+        cf = FIR_TAPS[((idx & 0xFFFF) * 12) >> 16].astype(np.uint32)
+        acc = (taps * cf[None]).sum(-1, dtype=np.uint32).astype(np.int32)
+        out[:, j0:j0 + len(idx)] = _sat16(_rshift_round(
+            acc.astype(np.int64), 15))
+    f_out = np.concatenate([U[:, 2 * n:2 * n + 8], sFIR[:, 8:]], 1)
+    return out, s_out, f_out
+
+
+def _resample_by_schedule(sIIR, sFIR, delay_buf, inp, *, fs_in_khz,
+                          fs_out_khz, in_len):
+    """resample_batch's two calls and delay buffer around the fused
+    schedule (kind iir_fir)."""
+    spec = sjc._resampler_spec(fs_in_khz, fs_out_khz)
+    assert spec["kind"] == "iir_fir"
+    delay, fs = spec["delay"], fs_in_khz
+    n_samples = fs - delay
+    db = np.array(delay_buf, np.int64)
+    db[:, delay:delay + n_samples] = inp[:, :n_samples]
+    kw = dict(batch=spec["batch_size"], inv=spec["inv_ratio"])
+    o1, sIIR, sFIR = _up2_fir_by_schedule(sIIR, sFIR, db[:, :fs], **kw)
+    o2, sIIR, sFIR = _up2_fir_by_schedule(
+        sIIR, sFIR, inp[:, n_samples:n_samples + in_len - fs], **kw)
+    delay_buf = np.array(delay_buf, np.int64)
+    delay_buf[:, :delay] = inp[:, in_len - delay:in_len]
+    return np.concatenate([o1, o2], 1), sIIR, sFIR, delay_buf
+
+
+@pytest.mark.parametrize("ms", [20, 10])
+@pytest.mark.parametrize("fs", [8, 12, 16])
+def test_up2_fir_schedule_matches_jax(fs, ms):
+    """Two frames through the fused schedule against
+    jax_core.resample_batch at 48 kHz out, each frame's state carried
+    into the next: the first block of fs samples, then 19 fs (two
+    chunks) or 9 fs (one). sIIR over the whole int32 range, sFIR in
+    rows 0-2 too."""
+    rng = np.random.default_rng(fs * 10 + ms)
+    B, n = 6, ms * fs
+    state = [rng.integers(-2 ** 31, 2 ** 31, (B, 6)),
+             rng.integers(-32768, 32768, (B, 8)),
+             rng.integers(-32768, 32768, (B, fs))]
+    state[1][:3] = rng.integers(-2 ** 31, 2 ** 31, (3, 8))
+    state = [a.astype(np.int32) for a in state]
+    j_state = [jnp.asarray(a) for a in state]
+    kw = dict(fs_in_khz=fs, fs_out_khz=48, in_len=n)
+    for frame in range(2):
+        inp = rng.integers(-32768, 32768, (B, n)).astype(np.int32)
+        got, *state = _resample_by_schedule(*state, inp, **kw)
+        want, *j_state = sjc.resample_batch(*j_state, jnp.asarray(inp),
+                                            **kw)
+        assert_equal(got, np.asarray(want), f"frame {frame} out")
+        for name, g, w in zip(("sIIR", "sFIR", "delay"), state, j_state):
+            assert_equal(g, np.asarray(w), f"frame {frame} {name}")
+
+
+@pytest.mark.parametrize("n,batch,fs_out", [(3, 2, 48), (1, 160, 48),
+                                            (31, 10, 24), (160, 160, 48),
+                                            (161, 80, 16)])
+def test_up2_fir_schedule_matches_plain(n, batch, fs_out):
+    """The schedule against the port's plain version (the chunk loop
+    over up2_hq_scan) at chunkings the pools do not give: a short last
+    chunk, a block of one sample, a block of exactly one chunk, a 16 kHz input
+    to 24 and 16 kHz; sFIR wider than 8 (its columns past 8 kept)."""
+    rng = np.random.default_rng(n + batch)
+    inv = tc._resampler_spec(16, fs_out)["inv_ratio"] if fs_out != 16 \
+        else 1 << 15
+    args = (rng.integers(-2 ** 31, 2 ** 31, (5, 6)),
+            rng.integers(-32768, 32768, (5, 10)),
+            rng.integers(-32768, 32768, (5, n)))
+    want = tc.iir_fir_chunks(*map(t32, args), batch_size=batch,
+                             inv_ratio=inv)
+    got = _up2_fir_by_schedule(*args, batch, inv)
+    for name, g, w in zip(("out", "sIIR", "sFIR"), got, want):
+        assert_equal(g, w, name)
+
+
+def test_up2_fir_schedule_follows_the_chunking():
+    """The check has teeth: the output indices restart per chunk, so a
+    changed chunking changes the count (16 to 24 kHz, 31 samples in one
+    chunk or in chunks of 7: 47 against 49 outputs) or, where the phases
+    drift (an inv_ratio of 40000), the bits at the same count (304
+    samples in one chunk or in 160 + 144: 997 outputs). Each chunking
+    equals the plain chunk loop's. (At the decoder's ratios into 48 kHz
+    the phases drift by less than a bin over the pools' blocks, so their
+    chunking changes neither.)"""
+    rng = np.random.default_rng(7)
+    sIIR = rng.integers(-2 ** 31, 2 ** 31, (4, 6))
+    sFIR = rng.integers(-32768, 32768, (4, 8))
+    x = rng.integers(-32768, 32768, (4, 304))
+    inv24 = tc._resampler_spec(16, 24)["inv_ratio"]
+    outs = {}
+    for n, inv, batch in ((31, inv24, 31), (31, inv24, 7), (304, 40000, 304),
+                          (304, 40000, 160)):
+        outs[n, batch] = _up2_fir_by_schedule(sIIR, sFIR, x[:, :n], batch,
+                                              inv)[0]
+        want = tc.iir_fir_chunks(t32(sIIR), t32(sFIR), t32(x[:, :n]),
+                                 batch_size=batch, inv_ratio=inv)[0]
+        assert_equal(outs[n, batch], want, f"n {n}, batch {batch}")
+    assert outs[31, 31].shape[1] == 47 and outs[31, 7].shape[1] == 49
+    assert outs[304, 304].shape == outs[304, 160].shape == (4, 997)
+    assert not np.array_equal(outs[304, 304], outs[304, 160])
+
+
+# ---- K9: comfort noise, the mask-on rows walked --------------------------
+
+CNG_CASES = [(320, 16), (160, 16), (240, 10), (160, 10)]
+CNG_MASKS = ["off", "on", "tenth", "random"]
+
+
+def _cng_by_schedule(xq, exc, A, gain, st0, mask, *, frame, order):
+    """cng_add as K9 schedules it: a tile of 16 rows walks only if its
+    ballot has a bit set, and then only the rows whose bit is set, the
+    LPC transposed over their excitation; the other rows' frames and
+    states are copied."""
+    xq, exc, A, gain, st0 = (np.asarray(a, np.int64)
+                             for a in (xq, exc, A, gain, st0))
+    mask = np.asarray(mask, bool)
+    out, st = xq[:, :frame].copy(), st0.copy()
+    for b0 in range(0, len(mask), 16):
+        on = np.flatnonzero(mask[b0:b0 + 16]) + b0
+        if len(on) == 0:
+            continue
+        v = _lpc_transposed(exc[on, :frame], st0[on], A[on, :order], order)
+        noise = _sat16(_rshift_round(_smulww(v, gain[on, None]), 8))
+        out[on] = _sat16(_w32(xq[on, :frame] + noise))
+        st[on] = v[:, frame - 16:]
+    return out, st
+
+
+@functools.lru_cache(maxsize=None)
+def _cng_case(frame, order, masks):
+    """Seeded inputs (20 rows, two tiles of 16: the second ragged; states
+    over the whole int32 range) and the schedule's answer."""
+    rng = np.random.default_rng(frame + order + CNG_MASKS.index(masks))
+    B = 20
+    mask = dict(off=np.zeros(B, bool), on=np.ones(B, bool),
+                tenth=np.arange(B) % 10 == 3,
+                random=rng.integers(0, 2, B).astype(bool))[masks]
+    args = (rng.integers(-32768, 32768, (B, frame)).astype(np.int32),
+            rng.integers(-(1 << 16), 1 << 16, (B, frame)).astype(np.int32),
+            rng.integers(-(1 << 12), 1 << 12, (B, 16)).astype(np.int32),
+            rng.integers(1 << 8, 1 << 14, B).astype(np.int32),
+            rng.integers(-2 ** 31, 2 ** 31, (B, 16)).astype(np.int32), mask)
+    return args, _cng_by_schedule(*args, frame=frame, order=order)
+
+
+@pytest.mark.parametrize("masks", CNG_MASKS)
+@pytest.mark.parametrize("frame,order", CNG_CASES)
+def test_cng_schedule_matches_pallas(frame, order, masks):
+    args, got = _cng_case(frame, order, masks)
+    want = cng_add_pallas(*map(jnp.asarray, args), frame=frame, order=order,
+                          interpret=True)
+    assert_equal(got[0], np.asarray(want[0]), "xq")
+    assert_equal(got[1], np.asarray(want[1]), "state")
+
+
+@pytest.mark.parametrize("masks", CNG_MASKS)
+@pytest.mark.parametrize("frame,order", CNG_CASES)
+def test_cng_schedule_matches_jax(frame, order, masks):
+    args, got = _cng_case(frame, order, masks)
+    want = sjp.cng_add(*map(jnp.asarray, args), frame=frame, order=order)
+    assert_equal(got[0], np.asarray(want[0]), "xq")
+    assert_equal(got[1], np.asarray(want[1]), "state")

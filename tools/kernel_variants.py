@@ -4,7 +4,7 @@ phase cut out, each built into its own library and timed in turns.
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 tools/kernel_variants.py [k3] [k8] [--rounds 3]
+    python3 tools/kernel_variants.py [k3] [k6] [k8] [k9] [--rounds 3]
 
 A variant is a list of (text, replacement) edits to one source file;
 each text must occur in it. A phase is cut by making its loop run zero
@@ -12,10 +12,13 @@ times or its branch never taken, so the kernel still writes its outputs
 (no longer the right values) and nvcc keeps the other phases. Each
 variant is timed as chip_smoke.py times a kernel (one wrapper call
 captured in a CUDA graph, replayed between CUDA events), at the path's
-shape: K3 at CC 1, B 2048; K8 at WB (16, 4, 16), B 2048, its operands
-column slices as the pool passes them. The variants run in turns, round
-by round, the order reversed every other round. Prints one JSON line per
-kernel: the card, each variant's device ms per round, and whether its
+shape: K3 at CC 1, B 2048; K6 as its bare entry (B 2048, n 160) and as
+its fused one (WB, B 2048, the 304-sample block as a column slice); K8
+at WB (16, 4, 16), B 2048, and K9 at B 2048, frame 320, order 16, every
+10th row on, their operands column slices as the pool passes them. The
+variants run in turns, round by round, the order reversed every other
+round. Prints one JSON line per kernel: the card, each variant's device
+ms per round (per call, where a kernel has several), and whether its
 outputs equal the committed source's bit for bit (a cut phase changes
 them; a launch shape or a layout must not).
 """
@@ -57,6 +60,25 @@ VARIANTS = {
         "16 columns": [("kCols = 8;", "kCols = 16;")],
         "128 threads": [("kThreads = 256;", "kThreads = 128;")],
     }),
+    "k6": ("silk_up2.cu", {
+        "as committed": [],
+        "smulwb products": [
+            ("__mulhi(wsub(in32, S0), h0)",
+             "smulwb(wsub(in32, S0), h0 >> 16)"),
+            ("__mulhi(wsub(out1, S1), h1)",
+             "smulwb(wsub(out1, S1), h1 >> 16)"),
+            ("__mulhi(Y, h2)", "smulwb(Y, h2 >> 16)")],
+        "loads after the stores": [("for (; t + 4 <= n; t += 4) {",
+                                    "for (; t + 4 <= 0; t += 4) {")],
+        "no walk": [("  if (warp < 4 && lane < (S >> 1) && s < ns) {",
+                     "  if (false) {")],
+        "no FIR": [("for (int k = lane; k < m; k += 32)",
+                    "for (int k = m + lane; k < m; k += 32)")],
+        "no row staging": [("    stage_row(", "    if (false) stage_row(")],
+        "16 streams, 256 threads": [("kThreads = 512;", "kThreads = 256;")],
+        "8 streams, 256 threads": [("kThreads = 512;", "kThreads = 256;"),
+                                   ("kStreams = 16;", "kStreams = 8;")],
+    }),
     "k8": ("silk_plc.cu", {
         "as committed": [],
         "no LPC walk": [("  if (tid < ns) {\n    int32_t a[ORDER];",
@@ -77,6 +99,18 @@ VARIANTS = {
         "16 streams, 256 threads": [("kThreads = 512;", "kThreads = 256;")],
         "8 streams, 256 threads": [("kThreads = 512;", "kThreads = 256;"),
                                    ("kStreams = 16;", "kStreams = 8;")],
+    }),
+    "k9": ("silk_cng.cu", {
+        "as committed": [],
+        "loads after the stores": [("for (; i + 4 <= frame; i += 4) {",
+                                    "for (; i + 4 <= 0; i += 4) {")],
+        "no walk": [("  if (tid < ns && (on >> tid & 1)) {",
+                     "  if (false) {")],
+        "no row staging": [("    stage_row(", "    if (false) stage_row(")],
+        "no mask-off copy": [("for (int c0 = lane; c0 < frame; c0 += 128)",
+                              "for (int c0 = frame; c0 < frame; c0 += 128)")],
+        "256 threads": [("kThreads = 512;", "kThreads = 256;")],
+        "8 streams": [("kStreams = 16;", "kStreams = 8;")],
     }),
 }
 
@@ -100,15 +134,24 @@ def build_variant(name: str, src: str, edits, work: pathlib.Path):
 
 
 def cases(dev):
-    """kernel -> one wrapper call at the path's shape."""
+    """kernel -> {call: one wrapper call at the path's shape}."""
     import numpy as np
     import torch
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_port_util import DBS, OV, column_slices, silk_plc_inputs
     from esp32_opus_player_tpu_torch.ops.celt.deemph import deemphasis_T
+    from esp32_opus_player_tpu_torch.ops.silk.cng_kernel import cng_add
     from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import (
         silk_plc_conceal)
+    from esp32_opus_player_tpu_torch.ops.silk.torch_core import (
+        _resampler_spec)
+    from esp32_opus_player_tpu_torch.ops.silk.up2_hq import up2_fir, up2_hq
     rng = np.random.default_rng(5)
+
+    def i32(lo, hi, shape):
+        return torch.as_tensor(rng.integers(lo, hi, shape),
+                               dtype=torch.int32, device=dev)
+
     dm = torch.as_tensor(rng.integers(-(1 << 28), 1 << 28, (1, DBS + OV,
                                                             2048)),
                          dtype=torch.int32, device=dev)
@@ -117,13 +160,29 @@ def cases(dev):
     syn = dm[:, DBS - 960:DBS]
     plc = column_slices(silk_plc_inputs(rng, 2048, 16, 4, 16), dev)
     kw = dict(fs_khz=16, nb_subfr=4, order=16)
-    return {"k3": lambda: deemphasis_T(syn, mem),
-            "k8": lambda: silk_plc_conceal(*plc, **kw)}
+    x160, S = i32(-32768, 32768, (2048, 160)), i32(-2 ** 31, 2 ** 31,
+                                                   (2048, 6))
+    x304 = i32(-32768, 32768, (2048, 311))[:, 7:]
+    F = i32(-32768, 32768, (2048, 8))
+    spec = _resampler_spec(16, 48)
+    fir = dict(batch_size=spec["batch_size"], inv_ratio=spec["inv_ratio"])
+    cng = column_slices([rng.integers(-32768, 32768, (2048, 320)),
+                         rng.integers(-(1 << 16), 1 << 16, (2048, 320)),
+                         rng.integers(-(1 << 12), 1 << 12, (2048, 16)),
+                         rng.integers(1 << 8, 1 << 14, 2048),
+                         rng.integers(-2 ** 31, 2 ** 31, (2048, 16))], dev)
+    cng.append(torch.arange(2048, device=dev) % 10 == 3)
+    return {"k3": {"": lambda: deemphasis_T(syn, mem)},
+            "k6": {"bare": lambda: up2_hq(S, x160),
+                   "fused": lambda: up2_fir(S, F, x304, **fir)},
+            "k8": {"": lambda: silk_plc_conceal(*plc, **kw)},
+            "k9": {"": lambda: cng_add(*cng, frame=320, order=16)}}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernels", nargs="*", help="k3, k8 (default both)")
+    ap.add_argument("kernels", nargs="*", help="k3, k6, k8, k9 (default "
+                    "all)")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     args.kernels = args.kernels or list(VARIANTS)
@@ -144,16 +203,22 @@ def main() -> int:
             src, variants = VARIANTS[k]
             libs = {name: build_variant(name, src, edits, pathlib.Path(tmp))
                     for name, edits in variants.items()}
-            outs, ms = {}, {name: [] for name in variants}
+            outs, ms = {}, {name: {c: [] for c in calls[k]}
+                            for name in variants}
             for name, lib in libs.items():
                 _build._lib = lib
-                outs[name] = [t.clone() for t in calls[k]()]
+                outs[name] = [t.clone() for fn in calls[k].values()
+                              for t in fn()]
             torch.cuda.synchronize()
             for r in range(args.rounds):
                 order = list(libs) if r % 2 == 0 else list(libs)[::-1]
                 for name in order:
                     _build._lib = libs[name]
-                    ms[name].append(device_ms(calls[k], 20))
+                    for c, fn in calls[k].items():
+                        ms[name][c].append(device_ms(fn, 20))
+            # one call: variant -> ms per round, as before
+            if list(calls[k]) == [""]:
+                ms = {name: v[""] for name, v in ms.items()}
             same = {name: all(torch.equal(a, b) for a, b in
                               zip(o, outs["as committed"]))
                     for name, o in outs.items()}
