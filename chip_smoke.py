@@ -12,24 +12,33 @@ Phases (any failure exits non-zero; there is no CPU path):
    paths' shapes, bit for bit (tolerance 0: int32 fixed point), and both
    timed: as device time (one call captured in a CUDA graph, replayed)
    and as eager stream time; beside each, its bound (the least time the
-   card could take for the same work, from this run's inputs). The
-   tiled kernels, K2, K3, K6-K9, are first held at widths that leave
-   their tiles ragged (K3 at every downsample factor), K2, K7 and K8 at
-   the lag edges, K6-K9 also on misaligned column slices; K3 is timed at
-   both paths' shapes (CC 1, B 2048 and CC 2, B 1024); K6 as its bare
-   entry and as its fused one (the resampler's FIR as its epilogue, what
-   the SILK pools launch), beside the chain the fused entry replaced;
+   card could take for the same work, from this run's inputs). K1 as
+   its bare entry over all 7 plans and as its fused entry (what the
+   frame step runs: each stream's own plan, the TDAC and the decode_mem
+   stores as its epilogue) at LM 0-3, B 2048, 1024 and ragged widths,
+   with no stream, every stream, every 3rd or a seeded random set
+   transient, timed beside the chain it replaced. The tiled kernels,
+   K2, K3, K6-K9, are first held at widths that leave their tiles
+   ragged (K3 at every downsample factor), K2, K7 and K8 at the lag
+   edges, K6-K9 also on misaligned column slices; K3 is timed at both
+   paths' shapes (CC 1, B 2048 and CC 2, B 1024); K6 as its bare entry
+   and as its fused one (the resampler's FIR as its epilogue, what the
+   SILK pools launch), beside the chain the fused entry replaced;
 4. the CELT path through StreamPool.run(): a mono pool of 2048 streams in
    K = 64 windows and a stereo pool of 1024 streams per frame, every
    stream bit-equal to tests/golden; then a small CELT pool with packet
    loss, card against CPU. Every wrapper's launch count is set to 0
    once, just before the first pool, and read once after the last pool
-   of phase 6; each pool prints the launches it made;
+   of phase 6; each pool prints the launches it made. One call of K1's
+   fused entry in each of the two large pools is kept (the first with a
+   transient stream) and, after the pools, held and timed again on those
+   inputs (the fixtures' own flags);
 5. the mono SILK path: a 2048-stream WB pool in K = 64 windows (one
    device bucket of 2048 rows: kernels K7 and K6's fused entry) and a
    48-stream pool over the NB, MB and WB fixtures in K = 3 windows
-   (buckets of 16 rows: K5 and K6's fused entry), every stream bit-equal
-   to tests/golden and the small pool equal between card and CPU;
+   (buckets of 16 rows: K7, at every width on the card, and K6's fused
+   entry), every stream bit-equal to tests/golden and the small pool
+   equal between card and CPU;
 6. the lossy mono SILK path: 2048 WB streams in K = 64 windows, RFC mode
    with concealment (rfc_plc), a tenth of the rows lost on every step,
    once without and once with in-band FEC; no golden exists for RFC
@@ -38,10 +47,14 @@ Phases (any failure exits non-zero; there is no CPU path):
    them (K7, K6, K8 and K9 run here). Then compat
    loss (every 7th packet) on the card against the reference's
    tests/golden/silk_wb_mono_20ms.loss7.pcm;
-7. one JSON line of per-kernel results (all nine kernels; K4, the fused
-   comb + deemphasis, is held to its plain version and timed beside
-   K2 + K3 but, as in the JAX package, no path calls it: launches 0),
-   and last the line {"ok": true, "device": {...}}.
+7. one JSON line of per-kernel results (all nine kernels; K1's row is
+   its fused entry, with its bare entry beside it; K4, the fused comb +
+   deemphasis, is held to its plain version and timed beside K2 + K3
+   but, as in the JAX package, no path calls it; K5 is held and timed
+   at the 16-row bucket shapes, but K7 does every bucket's LPC
+   recurrence on the card: K4, K5 and K1's bare entry must show 0
+   launches on the pools), and last the line {"ok": true, "device":
+   {...}}.
 """
 import json
 import pathlib
@@ -184,6 +197,25 @@ def k1_work(B: int, plans) -> tuple:
     return nbytes, ops
 
 
+def k1_tdac_work(tr, LM: int) -> tuple:
+    """One channel's call of K1's fused entry, from this run's flags tr
+    (numpy bool): the spectrum's N rows, the 60 history rows and the
+    flags read once, N + 60 decode_mem rows written. Operations: per
+    stream only its own plan's points (pre- and post-rotation and the
+    stages, as k1_work), the mirror (2 products and a sum, 5, per
+    mirrored row: 120 a block) and the clamp of the N finished rows
+    (2)."""
+    from esp32_opus_player_tpu_torch.ops.celt.fft import _plan
+    N, Bn, nt = 120 << LM, len(tr), int(tr.sum())
+    nbytes = Bn * ((N + 60) * 4 + 1 + (N + 60) * 4)
+    ops = 0.0
+    for count, (shift, Bblk) in ((Bn - nt, (3 - LM, 1)), (nt, (3, 1 << LM))):
+        plan = _plan(shift, Bblk)
+        per_point = 20 + sum(k1_stage_ops(p, m) for p, m, _ in plan["stages"])
+        ops += count * (plan["rows"] * per_point + 120 * Bblk * 5 + N * 2)
+    return float(nbytes), ops
+
+
 def k2_work(N: int, c1, c2) -> tuple:
     """Both comb calls of a frame, from this run's params: a region whose
     gains are both 0 does nothing; an active row reads its N rows and
@@ -267,6 +299,46 @@ def k9_work(mask, frame: int, order: int) -> tuple:
     return float(nbytes), on * frame * (7 * order + 8 + 11)
 
 
+def k1_fused_timings(what, card, sm_hz, freq, dcc, tr, LM=3) -> dict:
+    """K1's fused entry on one channel's inputs, timed against its plain
+    version and against the chain it replaced in the frame step (the
+    bare entry's two plans, then the select, the TDAC, the clamp and the
+    stores in torch), all in CUDA graphs; dcc is updated in place on
+    every replay, which changes no shape or branch."""
+    from esp32_opus_player_tpu_torch.ops.celt.fft import (
+        celt_imdct_tdac_T, celt_imdct_tdac_T_ref, fft_blocks)
+    work = dcc.clone()
+    t = dict(**timings(lambda: celt_imdct_tdac_T(freq, work, tr, LM=LM),
+                       lambda: celt_imdct_tdac_T_ref(freq, work, tr, LM=LM),
+                       20),
+             **bound(*k1_tdac_work(tr.cpu().numpy(), LM), sm_hz),
+             chain_ms=device_ms(lambda: celt_imdct_tdac_T_ref(
+                 freq, work, tr, LM=LM, fft=fft_blocks), 20),
+             transient=int(tr.sum()), streams=len(tr))
+    report(card, f"{what} ({t['transient']} of {t['streams']} transient; "
+           f"the chain it replaced: {t['chain_ms']:.4f} ms)", t)
+    return t
+
+
+def check_k1_path(dev, card, sm_hz, captured, res):
+    """K1's fused entry on inputs the CELT pools gave it (one call each of
+    the mono and the stereo pool, the fixtures' own flags): bit-equal to
+    its plain version, and timed there."""
+    from esp32_opus_player_tpu_torch.ops.celt.fft import (
+        celt_imdct_tdac_T, celt_imdct_tdac_T_ref)
+    for label, (freq, dcc, tr, LM) in captured.items():
+        got = celt_imdct_tdac_T(freq, dcc.clone(), tr, LM=LM)
+        want = celt_imdct_tdac_T_ref(freq, dcc.clone(), tr, LM=LM)
+        if not same([got], [want]):
+            raise SystemExit(f"K1 fused on the {label} pool's inputs differs "
+                             f"from its plain version")
+        res["K1"]["max_abs_err"] = max(res["K1"]["max_abs_err"],
+                                       max_err(got, want))
+        res["K1"][label] = k1_fused_timings(
+            f"K1 celt_imdct_tdac_T (fused) on a {label} pool call's inputs, "
+            f"B={len(tr)}", card, sm_hz, freq, dcc, tr, LM)
+
+
 def check_celt_kernels(dev, card, sm_hz):
     """Every CELT kernel against its plain version at B = 2048
     (bit-equal), timed at the main path's shapes."""
@@ -277,8 +349,10 @@ def check_celt_kernels(dev, card, sm_hz):
         comb_filter_step_T_ref)
     from esp32_opus_player_tpu_torch.ops.celt.deemph import (
         deemphasis_T, deemphasis_T_ref)
-    from esp32_opus_player_tpu_torch.ops.celt.fft import (fft_blocks,
-                                                          fft_blocks_ref)
+    from esp32_opus_player_tpu_torch.ops.celt.fft import (
+        celt_imdct_tdac_T, celt_imdct_tdac_T_ref, fft_blocks, fft_blocks_ref)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_util import imdct_tdac_inputs
     rng = np.random.default_rng(2024)
 
     def t32(a):
@@ -297,12 +371,38 @@ def check_celt_kernels(dev, card, sm_hz):
                              f"plain version: {max_err(got[0], want[0])}")
         err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
     both = [(0, 1), (3, 8)]
-    res["K1"] = dict(max_abs_err=err, **timings(
+    res["K1 bare"] = dict(max_abs_err=err, **timings(
         lambda: [fft_blocks(freq, s, b) for s, b in both],
         lambda: [fft_blocks_ref(freq, s, b) for s, b in both], 20),
         **bound(*k1_work(B, both), sm_hz))
-    report(card, f"K1 fft_blocks, all 7 plans; timed: both LM-3 plans, "
-           f"B={B}", res["K1"])
+    report(card, f"K1 fft_blocks (bare entry), all 7 plans; timed: both "
+           f"LM-3 plans, B={B}", res["K1 bare"])
+
+    # K1's fused entry (what the frame step runs): LM 3 at the paths'
+    # widths (B 2048 mono, 1024 a stereo channel) and ragged ones, LM 0-2
+    # at ragged widths; no stream, every stream, every 3rd stream or a
+    # seeded random set transient; timed at B 2048 with the random set
+    # (the fixtures' own flags are timed after the pools, check_k1_path)
+    err = 0
+    for LM in (3, 2, 1, 0):
+        for Bn in ((B, B // 2, 2047, 9, 1) if LM == 3 else (2047, 9)):
+            for flags in ("false", "true", "third", "random"):
+                f, d, tr = imdct_tdac_inputs(rng, Bn, LM, flags)
+                f, d = t32(f), t32(d)
+                tr = torch.as_tensor(tr, device=dev)
+                got = celt_imdct_tdac_T(f, d.clone(), tr, LM=LM)
+                want = celt_imdct_tdac_T_ref(f, d.clone(), tr, LM=LM)
+                if not same([got], [want]):
+                    raise SystemExit(f"K1 fused (LM {LM}, B {Bn}, flags "
+                                     f"{flags}) differs from its plain "
+                                     f"version: {max_err(got, want)}")
+                err = max(err, max_err(got, want))
+                if (LM, Bn, flags) == (3, B, "random"):
+                    timed = (f, d, tr)
+    res["K1"] = dict(max_abs_err=err, mix=k1_fused_timings(
+        f"K1 celt_imdct_tdac_T (fused), LM 0-3, B in (2048, 1024, 2047, "
+        f"9, 1), flags none / all / every 3rd / random; timed: LM 3, "
+        f"B={B}, a seeded random set transient", card, sm_hz, *timed))
 
     # K2: lags 15..1024, both regions of a 960-sample frame
     def params(Bn, lag):
@@ -411,14 +511,16 @@ def check_celt_kernels(dev, card, sm_hz):
 
 def check_silk_kernels(dev, card, sm_hz):
     """K5-K7 against their plain versions on the card (bit-equal),
-    timed at the SILK path's shapes: K7 at B = 2048, WB (fs 16, nb 4,
-    order 16), with the other (fs, nb, order) sets for equality; K6's
-    bare entry at n = 160, B = 2048 and 16, with every chunk length of
-    both SILK pools for equality, and its fused entry (the whole iir_fir
-    call, which the pools run) on both blocks of a frame at every rate,
-    timed at WB, n = 304, B = 2048 and 16; K5 at the WB bucket of the
-    48-stream pool (B = 16, n = 80, order 16), with its NB and MB buckets
-    for equality."""
+    timed at the SILK path's shapes: K7 at B = 2048 and 16, WB (fs 16,
+    nb 4, order 16), with the other (fs, nb, order) sets for equality;
+    K6's bare entry at n = 160, B = 2048 and 16, with every chunk length
+    of both SILK pools for equality, and its fused entry (the whole
+    iir_fir call, which the pools run) on both blocks of a frame at
+    every rate, timed at WB, n = 304, B = 2048 and 16; K5 (off every
+    pool's path:
+    K7 takes every bucket on the card) at the shape of the 48-stream
+    pool's WB bucket (B = 16, n = 80, order 16), with its NB and MB
+    buckets for equality."""
     import numpy as np
     import torch
     from esp32_opus_player_tpu_torch.ops.silk.core_kernel import (
@@ -476,10 +578,18 @@ def check_silk_kernels(dev, card, sm_hz):
                                        lambda: silk_core_ref(*targs, **kw),
                                        20),
                              **bound(*k7_work(args, fs, nb, order), sm_hz))
-    res["K7"]["max_abs_err"] = err
+    # and at a 16-row bucket of the 48-stream pool (WB), which K7 takes
+    # on the card as it takes every bucket
+    args, targs16, kw16, e = k7_case(16, 16, 4, 16)
+    t16 = dict(**timings(lambda: silk_core(*targs16, **kw16),
+                         lambda: silk_core_ref(*targs16, **kw16), 20),
+               **bound(*k7_work(args, 16, 4, 16), sm_hz))
+    res["K7"].update(max_abs_err=max(err, e), ms_b16=t16["ms"],
+                     bound_ms_b16=t16["bound_ms"])
     report(card, f"K7 silk_core, all 4 (fs, nb, order) sets, also ragged "
            f"widths, all lags 2 fs / 18 fs and misaligned slices; timed: "
            f"(16, 4, 16), B={B}", res["K7"])
+    report(card, "K7 silk_core; timed: (16, 4, 16), B=16", t16)
 
     # K6, bare entry: every chunk length the resampler gave it before
     # the fused entry (the first block of fs samples, then batchSize
@@ -772,7 +882,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
     from esp32_opus_player_tpu_torch.ops import _build
-    from esp32_opus_player_tpu_torch.ops.celt import comb, deemph, fft
+    from esp32_opus_player_tpu_torch.ops.celt import (comb, deemph, fft,
+                                                      synthesis_T)
     from esp32_opus_player_tpu_torch.ops.silk import (cng_kernel,
                                                       core_kernel,
                                                       lpc_synth, plc_kernel,
@@ -802,9 +913,11 @@ def main() -> int:
     # Every path below counts: each wrapper's count is set to 0 here, just
     # before the first pool, and read once after the last; `counted`
     # prints what one pool launched.
-    # (K6's two entries launch one kernel; "K6 fused" counts the fused
-    # one apart as well)
-    wrappers = {"K1": [fft.fft_blocks], "K2": [comb.comb_filter_step_T],
+    # (K1's and K6's two entries each launch one kernel's source; "K1
+    # bare" and "K6 fused" count one entry apart as well)
+    wrappers = {"K1": [fft.fft_blocks, fft.celt_imdct_tdac_T],
+                "K1 bare": [fft.fft_blocks],
+                "K2": [comb.comb_filter_step_T],
                 "K3": [deemph.deemphasis_T],
                 "K4": [comb.comb_deemph_step_T],
                 "K5": [lpc_synth.lpc_synth],
@@ -825,18 +938,34 @@ def main() -> int:
         print(f"[{card}] launches in {label}: {made}")
         return out
 
+    # K1's fused entry is held again after the pools on the inputs of one
+    # call of each CELT pool: the first with a transient stream among
+    # its flags (one host read of the flags a call until then)
+    captured = {}
+
+    def capturing(label, run):
+        def spy(freq, dcc, tr, *, LM):
+            if label not in captured and bool(tr.any()):
+                captured[label] = (freq.clone(), dcc.clone(), tr.clone(), LM)
+            return fft.celt_imdct_tdac_T(freq, dcc, tr, LM=LM)
+        synthesis_T.celt_imdct_tdac_T = spy
+        try:
+            return run()
+        finally:
+            synthesis_T.celt_imdct_tdac_T = fft.celt_imdct_tdac_T
+
     for ws in wrappers.values():
         for w in ws:
             w.launches = 0
 
     # the CELT path
-    counted("the CELT mono pool", lambda: run_pool(
+    counted("the CELT mono pool", lambda: capturing("mono", lambda: run_pool(
         dev, card, "CELT mono", ["celt_fb_mono_20ms",
-                                 "celt_fb_mono_drums_20ms"], B, 64))
-    counted("the CELT stereo pool", lambda: run_pool(
-        dev, card, "CELT stereo", ["celt_fb_stereo_20ms",
-                                   "celt_fb_stereo_drums_20ms"], B // 2, 1,
-        channels=2))
+                                 "celt_fb_mono_drums_20ms"], B, 64)))
+    counted("the CELT stereo pool", lambda: capturing("stereo", lambda:
+        run_pool(dev, card, "CELT stereo", ["celt_fb_stereo_20ms",
+                                            "celt_fb_stereo_drums_20ms"],
+                 B // 2, 1, channels=2)))
 
     src = [fixture(f"celt_fb_mono{d}_20ms") for d in ("", "_drums")] * 2
     loss = lambda i, k: (3 * i + k) % 5 == 0
@@ -904,15 +1033,24 @@ def main() -> int:
 
     launches = launch_counts()
     print(f"[{card}] launches over every pool: {launches}")
+    # off every pool's path: K4, as in the JAX package (the CELT frame
+    # step runs K2 and K3 apart); K1's bare entry, since the frame step
+    # runs the fused one; K5, since every SILK bucket on the card takes
+    # K7, which does the LPC recurrence itself
+    off_path = ("K4", "K1 bare", "K5")
     for k, v in launches.items():
-        # K4 is on no path, as in the JAX package: the CELT frame step
-        # runs K2 and K3 apart, so the CELT pools launch it 0 times
-        if v <= 0 and k != "K4":
+        if k in off_path and v != 0:
+            raise SystemExit(f"{k} was launched {v} times on the pools")
+        if v <= 0 and k not in off_path:
             raise SystemExit(f"{k} was never launched on the main path")
+    if set(captured) != {"mono", "stereo"}:
+        raise SystemExit(f"no CELT pool call with a transient stream was "
+                         f"captured: {sorted(captured)}")
+    check_k1_path(dev, card, sm_mhz * 1e6, captured, res)
 
     pkg, jx = "esp32_opus_player_tpu_torch/csrc/", "esp32_opus_player_tpu/"
     meta = {
-        "K1": ("celt_fft_blocks", "celt_fft.cu",
+        "K1": ("celt_imdct_tdac", "celt_fft.cu",
                "ops/celt/pallas_fft.py:311"),
         "K2": ("celt_comb_step", "celt_comb.cu",
                "ops/celt/pallas_comb.py:237"),
@@ -927,6 +1065,12 @@ def main() -> int:
         "K8": ("silk_plc", "silk_plc.cu", "ops/silk/pallas_core.py:562"),
         "K9": ("silk_cng", "silk_cng.cu", "ops/silk/pallas_core.py:631"),
     }
+    # K1's row: its fused entry (what the frame step runs) on the mono
+    # pool's inputs; beside it the same on the stereo pool's and on a
+    # seeded mix, the chain it replaced, and the bare entry
+    fused = {k: res["K1"]["mono"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")}
+    res["K1"].update(fused)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # no single PyTorch call computes these int32 fixed-point recurrences
     # (torch.fft is float and another function), so library_ms is null
@@ -936,9 +1080,21 @@ def main() -> int:
                for k, (n, s, r) in meta.items()]
     # K3 at the stereo pool's shape too; K4's yardstick: the two launches
     # it would replace, same inputs
+    k1 = res["K1"]
+    kernels[0].update(
+        chain_ms=k1["mono"]["chain_ms"], ms_stereo=k1["stereo"]["ms"],
+        bound_ms_stereo=k1["stereo"]["bound_ms"],
+        chain_ms_stereo=k1["stereo"]["chain_ms"], ms_mix=k1["mix"]["ms"],
+        transient={k: f"{k1[k]['transient']}/{k1[k]['streams']}"
+                   for k in ("mono", "stereo", "mix")},
+        bare_launches=launches["K1 bare"],
+        **{"bare_" + k: res["K1 bare"][k] for k in keys})
     kernels[2].update(ms_cc2=res["K3"]["ms_cc2"],
                       bound_ms_cc2=res["K3"]["bound_ms_cc2"])
     kernels[3]["k2_then_k3_ms"] = res["K4"]["k2_then_k3_ms"]
+    # K7 at a 16-row bucket too (the 48-stream pool's)
+    kernels[6].update(ms_b16=res["K7"]["ms_b16"],
+                      bound_ms_b16=res["K7"]["bound_ms_b16"])
     # K6 at the 48-stream pool's 16 rows; its fused entry (what the SILK
     # pools launch) beside the chain it replaced, K6 then the torch FIR
     kernels[5].update(fused_launches=launches["K6 fused"], **{

@@ -106,6 +106,8 @@ def _bind(so):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     so.celt_fft_blocks.restype = i
     so.celt_fft_blocks.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, p, p]
+    so.celt_imdct_tdac.restype = i
+    so.celt_imdct_tdac.argtypes = [p, ll, p, ll, p, i, i, i, p, p, p, p, p]
     so.celt_comb_step.restype = i
     so.celt_comb_step.argtypes = [p, i, i, i, p, p, p, p, p]
     so.celt_deemph.restype = i

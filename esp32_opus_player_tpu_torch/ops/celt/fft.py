@@ -10,6 +10,15 @@ CPU tensor it runs `fft_blocks_ref`, the port of the XLA path it replaced
 (jax_synthesis.opus_fft_batch with imdct_prerotate/imdct_postrotate),
 written over the same static plan. Both are bit-exact to the reference
 (clt_mdct_backward src/celt.cpp:3204-3280, opus_fft_impl :2997).
+
+`celt_imdct_tdac_T(freq_T, dcc, tr, LM=)` is K1's second entry, the one
+the CELT frame step runs: one channel's whole frame iMDCT, each stream by
+its own block structure (`tr`), with the post-rotate interleave, the TDAC
+mirror, the clamp and the decode_mem stores as the kernel's epilogue, in
+place in `dcc`. Its plain version `celt_imdct_tdac_T_ref` is the JAX
+step's composition (jax_synthesis_T.celt_synth_step_dual_T:221-233):
+both block structures through `celt_imdct_frame_T`, a per-stream select,
+the clamp and the two row stores.
 """
 from __future__ import annotations
 
@@ -22,7 +31,9 @@ import torch
 from ..tables.celt_tables import (fft_bitrev60, fft_bitrev120,
                                   fft_bitrev240, fft_bitrev480,
                                   fft_twiddles48000_960)
-from .torch_synthesis import I32, TRIG as _TRIG, const, smul
+from .torch_synthesis import (DECODE_BUFFER_SIZE, I32, OVERLAP,
+                              SHORT_MDCT_SIZE, SIG_SAT, TRIG as _TRIG,
+                              WINDOW, const, imdct_tdac, smul)
 
 _TW = np.asarray(fft_twiddles48000_960, dtype=np.int32)   # (480, 2) r, i
 
@@ -269,8 +280,10 @@ def fft_blocks_ref(freq_T, shift: int, Bblk: int):
 # ---------------------------------------------------------------------
 
 def fft_blocks(freq_T, shift: int, Bblk: int):
-    """K1 wrapper: (yr, yi) as fft_blocks_ref. CPU tensors take the twin;
-    CUDA tensors launch csrc/celt_fft.cu (never the twin)."""
+    """K1's bare entry: (yr, yi) as fft_blocks_ref, one plan for every
+    stream. CPU tensors take the twin; CUDA tensors launch
+    csrc/celt_fft.cu (never the twin). No pool calls it: the frame step
+    runs the fused entry, celt_imdct_tdac_T."""
     if freq_T.device.type == "cpu":
         return fft_blocks_ref(freq_T, shift, Bblk)
     from .. import _build
@@ -301,3 +314,128 @@ def fft_blocks(freq_T, shift: int, Bblk: int):
 
 
 fft_blocks.launches = 0
+
+
+# ---------------------------------------------------------------------
+# kernel K1, fused entry: one frame's iMDCT + TDAC, in place
+# ---------------------------------------------------------------------
+
+def _variant(LM: int, transient: bool):
+    """(Bblk, samples a block, shift) of one block structure."""
+    N = SHORT_MDCT_SIZE << LM
+    if transient:
+        return 1 << LM, SHORT_MDCT_SIZE, 3
+    return 1, N, 3 - LM
+
+
+def celt_imdct_frame_T(freq_T, hist_T, LM: int, transient: bool,
+                       fft=fft_blocks_ref):
+    """Full-frame iMDCT of one block structure, transposed: freq_T (N,
+    B), hist_T (OVERLAP/2, B) previous unwindowed tail. Returns (N +
+    OVERLAP/2, B) = N finished samples + the new tail (src/celt.cpp:2057
+    block loop). fft: the FFT core, (freq_T, shift, Bblk) -> (yr, yi):
+    the plain one, or K1's bare entry for the chain the fused entry
+    replaced (chip_smoke.py times it)."""
+    Bblk, NB, shift = _variant(LM, transient)
+    N4 = FFT_STATES[shift].nfft
+    B = freq_T.shape[1]
+    yr, yi = fft(freq_T, shift, Bblk)
+    # out[2i] = yr[i]; out[N2-1-2i] = yi[i] (post-rotate interleave)
+    out = torch.stack([yr.reshape(Bblk, N4, B),
+                       yi.reshape(Bblk, N4, B).flip(1)],
+                      dim=2).reshape(Bblk, 2 * N4, B)
+    parts = []
+    cur_hist = hist_T
+    for b in range(Bblk):
+        region = imdct_tdac(cur_hist, out[b])
+        parts.append(region[:NB])
+        cur_hist = region[NB:NB + OVERLAP // 2]
+    parts.append(cur_hist)
+    return torch.cat(parts, dim=0)
+
+
+def celt_imdct_tdac_T_ref(freq_T, dcc, tr, *, LM: int, fft=fft_blocks_ref):
+    """Plain version of the fused entry (pure torch with the default fft):
+    both block structures run for every stream and each stream keeps its
+    own (`tr` (B,) bool, the transient flag); dcc[DBS-N:DBS] gets the N
+    finished samples clamped to +-SIG_SAT and dcc[DBS:DBS+60] the new
+    tail, in place. dcc: (DBS + OVERLAP, B) int32, one channel of the
+    rolled decode_mem; its rows DBS-N .. DBS-N+59 are the history. Returns
+    dcc."""
+    N = SHORT_MDCT_SIZE << LM
+    DBS = DECODE_BUFFER_SIZE
+    hist = dcc[DBS - N:DBS - N + OVERLAP // 2]
+    regions = [celt_imdct_frame_T(freq_T, hist, LM, t, fft=fft)
+               for t in (False, True)]
+    region = torch.where(tr[None, :], regions[1], regions[0])
+    dcc[DBS - N:DBS] = region[:N].clamp(-SIG_SAT, SIG_SAT)
+    dcc[DBS:DBS + OVERLAP // 2] = region[N:]
+    return dcc
+
+
+_MAX_STAGES = 6
+
+
+@functools.lru_cache(maxsize=None)
+def _tdac_tables(LM: int, device: torch.device):
+    """The fused entry's tables on `device` (built once per device): the
+    twiddles, the window, the gather rows as (i1g, i2g) pairs and the
+    pre/post twiddles of both block structures, and, in host memory,
+    both plans' (nstage, stages) as the kernel reads them."""
+    tabs, stages = [], []
+    for transient in (False, True):
+        Bblk, _, shift = _variant(LM, transient)
+        t = _plan_tensors(shift, Bblk, device)
+        plan = _plan(shift, Bblk)
+        gather = np.stack([plan["i1g"], plan["i2g"]], axis=1)
+        tabs += [const(gather, device), t["pre"], t["post"]]
+        st = np.zeros((_MAX_STAGES, 3), dtype=np.int32)
+        st[:len(plan["stages"])] = plan["stages"]
+        stages += [len(plan["stages"]), *st.ravel()]
+    ptrs = (ctypes.c_void_p * 6)(*[x.data_ptr() for x in tabs])
+    return dict(tw=t["tw_table"], window=const(WINDOW, device),
+                tabs=tabs, ptrs=ptrs,
+                stages=np.asarray(stages, dtype=np.int32))
+
+
+def celt_imdct_tdac_T(freq_T, dcc, tr, *, LM: int):
+    """K1's fused entry: dcc updated in place as by
+    celt_imdct_tdac_T_ref; returns dcc. CPU tensors take the plain
+    version; CUDA tensors launch csrc/celt_fft.cu's imdct_tdac kernel
+    (never the plain version), one launch a call, each operand read where
+    it lies: freq_T and dcc may be row slices of wider tensors whose
+    columns are packed."""
+    if freq_T.device.type == "cpu":
+        return celt_imdct_tdac_T_ref(freq_T, dcc, tr, LM=LM)
+    from .. import _build
+    if freq_T.device.type != "cuda":
+        raise ValueError(f"celt_imdct_tdac_T: unsupported device "
+                         f"{freq_T.device}")
+    N = SHORT_MDCT_SIZE << LM
+    B = dcc.shape[-1] if dcc.dim() == 2 else -1
+    if (freq_T.dtype != I32 or dcc.dtype != I32 or freq_T.dim() != 2
+            or dcc.dim() != 2 or freq_T.shape[0] < N or freq_T.shape[1] != B
+            or dcc.shape[0] < DECODE_BUFFER_SIZE + OVERLAP // 2
+            or tuple(tr.shape) != (B,) or tr.dtype != torch.bool):
+        raise ValueError("celt_imdct_tdac_T: freq_T (N, B) and dcc (2168, "
+                         "B) int32, tr (B,) bool")
+    if dcc.stride(1) != 1:
+        raise ValueError("celt_imdct_tdac_T: dcc must have packed columns "
+                         "(it is updated in place)")
+    if freq_T.stride(1) != 1:
+        freq_T = freq_T.contiguous()
+    tr = tr.contiguous()
+    t = _tdac_tables(LM, freq_T.device)
+    with torch.cuda.device(freq_T.device):
+        err = _build.lib().celt_imdct_tdac(
+            freq_T.data_ptr(), freq_T.stride(0), dcc.data_ptr(),
+            dcc.stride(0), tr.data_ptr(), B, N, DECODE_BUFFER_SIZE - N,
+            t["tw"].data_ptr(), t["window"].data_ptr(), t["ptrs"],
+            t["stages"].ctypes.data_as(ctypes.c_void_p),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "celt_imdct_tdac")
+    celt_imdct_tdac_T.launches += 1
+    return dcc
+
+
+celt_imdct_tdac_T.launches = 0

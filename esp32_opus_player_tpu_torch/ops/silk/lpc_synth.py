@@ -7,7 +7,9 @@ computes: the order-10/16 LPC synthesis feedback of silk_decode_core
 per-stream A (B, order) Q12 and the carried state (B, 16), most recent
 sample last. Returns (vs (B, n), state' (B, 16)). On a CUDA tensor it
 launches csrc/silk_lpc.cu; on a CPU tensor it runs `lpc_synth_ref`, the
-LPC loop of jax_core.silk_core_frame_xla.
+LPC loop of jax_core.silk_core_frame_xla. No pool reaches the kernel on
+the card: `torch_core.silk_core_frame` sends every CUDA bucket, whatever
+its width, to K7, which runs this recurrence itself.
 """
 from __future__ import annotations
 

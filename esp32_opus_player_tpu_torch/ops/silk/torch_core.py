@@ -14,11 +14,15 @@ that would see the difference (a right shift, a compare, a clamp); no
 result relies on int32 overflow inside torch.
 
 On a CUDA tensor `silk_core_frame` launches kernel K7 (ops/silk/
-core_kernel.py) for 128 rows or more and the chunked form below it,
-whose LPC recurrence is kernel K5 (ops/silk/lpc_synth.py); the 2x
-allpass inside `resample_batch` is kernel K6 (ops/silk/up2_hq.py), whose
-fused entry also does the IIR-FIR interpolation around it. On a CPU
-tensor every kernel's wrapper runs its plain version.
+core_kernel.py) at every width. The JAX package sends buckets under 128
+rows to the chunked form instead (jax_core.py:125-128: below one TPU
+lane tile its gathers win); that is a TPU lane-tile rule, and K7 is held
+bit-equal on the card down to B = 1, so on the card the chunked form
+below, whose LPC recurrence is kernel K5 (ops/silk/lpc_synth.py), is
+K7's plain version only. The 2x allpass inside `resample_batch` is
+kernel K6 (ops/silk/up2_hq.py), whose fused entry also does the IIR-FIR
+interpolation around it. On a CPU tensor every kernel's wrapper runs its
+plain version.
 """
 from __future__ import annotations
 
@@ -36,7 +40,6 @@ INT32_MAX = 2147483647
 INT32_MIN = -2147483648
 LTP_ORDER = 5
 MAX_LPC_ORDER = 16
-CORE_KERNEL_MIN_ROWS = 128      # jax_core.py:125
 
 
 # ---------------------------------------------------------------------
@@ -124,15 +127,14 @@ def silk_core_frame(outBuf, sLPC0, exc, A_Q12, B_Q14, gains_q16,
                     rewhiten_k, gain_adj_q16, prev_gain_match, *,
                     fs_khz: int, nb_subfr: int, order: int):
     """Batched silk_decode_core (src/silk.cpp:1806); arguments and
-    results as jax_core.silk_core_frame. On a CUDA tensor of 128 rows or
-    more the whole core is one launch of kernel K7; otherwise the
-    chunked form `silk_core_frame_xla` runs (with K5 for its LPC
-    recurrence on a card)."""
+    results as jax_core.silk_core_frame. On a CUDA tensor the whole core
+    is one launch of kernel K7, at any number of rows; on a CPU tensor
+    the chunked form `silk_core_frame_xla` runs."""
     args = (outBuf, sLPC0, exc, A_Q12, B_Q14, gains_q16, inv_gain_q31_k0,
             pitchL, signal_type_voiced, rewhiten_k, gain_adj_q16,
             prev_gain_match)
     kw = dict(fs_khz=fs_khz, nb_subfr=nb_subfr, order=order)
-    if exc.device.type == "cuda" and exc.shape[0] >= CORE_KERNEL_MIN_ROWS:
+    if exc.device.type == "cuda":
         from .core_kernel import silk_core
         return silk_core(*args, **kw)
     return silk_core_frame_xla(*args, **kw)

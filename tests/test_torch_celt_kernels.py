@@ -18,10 +18,9 @@ from esp32_opus_player_tpu_torch.ops.celt.comb import (
     comb_filter_step_T, comb_filter_step_T_ref)
 from esp32_opus_player_tpu_torch.ops.celt.deemph import (deemphasis_T,
                                                          deemphasis_T_ref)
-from esp32_opus_player_tpu_torch.ops.celt.fft import (fft_blocks,
+from esp32_opus_player_tpu_torch.ops.celt.fft import (celt_imdct_frame_T,
+                                                      fft_blocks,
                                                       fft_blocks_ref)
-from esp32_opus_player_tpu_torch.ops.celt.synthesis_T import (
-    celt_imdct_frame_T)
 
 from torch_port_util import DBS, OV, assert_equal, comb_params, t32
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain torch twins on an
 NVIDIA card, bit for bit, at the main path's width (B = 2048 streams;
-K2, K3, K6, K7, K8 and K9 also at widths that leave their tiles ragged),
+K1's fused entry, K2, K3, K6, K7, K8 and K9 also at widths that leave
+their tiles ragged),
 and the port's pool on the card against tests/golden. Needs a card;
 without one every test skips. Run on the card from the repository root:
 
@@ -74,6 +75,74 @@ def test_fft_kernel_matches_twin(dev, shift, Bblk):
     want = fft_blocks_ref(freq, shift, Bblk)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("flags", ["false", "true", "third", "random"])
+@pytest.mark.parametrize("rows", [1, 9, 2047, B])
+@pytest.mark.parametrize("LM", [3, 2, 1, 0])
+def test_imdct_tdac_kernel_matches_plain(dev, LM, rows, flags):
+    """K1's fused entry against its plain version, in place in decode_mem,
+    at widths around its 8-stream tile, with flags mixed in a tile; at
+    2047 rows the spectrum is a row slice of a wider tensor."""
+    from esp32_opus_player_tpu_torch.ops.celt.fft import (
+        celt_imdct_tdac_T, celt_imdct_tdac_T_ref)
+    from torch_port_util import imdct_tdac_inputs
+    rng = np.random.default_rng(1000 * LM + rows)
+    freq, dcc, tr = imdct_tdac_inputs(rng, rows, LM, flags)
+    f = t32(freq, dev)
+    if rows == 2047:
+        wide = torch.zeros((f.shape[0] + 9, rows), dtype=torch.int32,
+                           device=dev)
+        wide[4:4 + f.shape[0]] = f
+        f = wide[4:4 + f.shape[0]]
+    tr = torch.as_tensor(tr, device=dev)
+    n = celt_imdct_tdac_T.launches
+    got = celt_imdct_tdac_T(f, t32(dcc, dev), tr, LM=LM)
+    assert celt_imdct_tdac_T.launches == n + 1
+    want = celt_imdct_tdac_T_ref(f, t32(dcc, dev), tr, LM=LM)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_imdct_tdac_is_one_launch(dev):
+    """One fused call is one device kernel: no copy, no cast, no cat."""
+    names = _device_kernels(
+        "import numpy as np\n"
+        "from esp32_opus_player_tpu_torch.ops.celt.fft import "
+        "celt_imdct_tdac_T\n"
+        "from torch_port_util import imdct_tdac_inputs\n"
+        "f, d, tr = imdct_tdac_inputs(np.random.default_rng(5), t.B, 3, "
+        "'random')\n"
+        "f, d, tr = t.t32(f, dev), t.t32(d, dev), torch.as_tensor(tr, "
+        "device=dev)\n"
+        "call = lambda: celt_imdct_tdac_T(f, d, tr, LM=3)")
+    assert len(names) == 1 and "imdct_tdac_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("C,CC", [(1, 1), (2, 2), (2, 1)])
+def test_celt_step_launches_fused_imdct(dev, C, CC):
+    """One CELT frame step launches K1's fused entry once per channel and
+    the bare fft_blocks not at all, and equals the step on the CPU."""
+    from esp32_opus_player_tpu_torch.ops.celt.fft import (celt_imdct_tdac_T,
+                                                          fft_blocks)
+    from esp32_opus_player_tpu_torch.ops.celt.synthesis_T import (
+        celt_synth_step_dual_T)
+    from torch_port_util import port_synth_step, synth_inputs
+    ins = synth_inputs(np.random.default_rng(C + 3 * CC), 37, C, CC, 3)
+    dm, pre, X, bandE, start, end, c1, c2, tr = ins
+    n1, n0 = celt_imdct_tdac_T.launches, fft_blocks.launches
+    pcmT, dmT, pre2 = celt_synth_step_dual_T(
+        t32(np.moveaxis(dm, 0, 2), dev), t32(pre, dev),
+        t32(np.moveaxis(X, 0, 2), dev), t32(bandE, dev), t32(start, dev),
+        t32(end, dev), tuple(t32(v, dev) for v in c1),
+        tuple(t32(v, dev) for v in c2), torch.as_tensor(tr, device=dev),
+        LM=3, C=C, CC=CC)
+    assert (celt_imdct_tdac_T.launches - n1, fft_blocks.launches - n0) == \
+        (CC, 0)
+    pcm, dm2, pre_c = port_synth_step(*ins, LM=3, C=C, CC=CC)
+    assert np.array_equal(np.moveaxis(pcmT.cpu().numpy(), 2, 0), pcm)
+    assert np.array_equal(np.moveaxis(dmT.cpu().numpy(), 2, 0), dm2)
+    assert np.array_equal(pre2.cpu().numpy(), pre_c)
 
 
 # widths on both sides of K2's 8-stream tile and of K7's block of streams
@@ -307,9 +376,10 @@ def test_lpc_kernel_matches_plain(dev, order):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("rows", [128, 127])
+@pytest.mark.parametrize("rows", [128, 127, 16, 1])
 def test_silk_core_dispatch(dev, rows):
-    """128 rows or more take K7; fewer take the chunked core with K5."""
+    """Every CUDA bucket takes one K7 launch, whatever its width (the JAX
+    package's 128-row gate is a TPU lane-tile rule); K5 is not launched."""
     from esp32_opus_player_tpu_torch.ops.silk import torch_core as tc
     from esp32_opus_player_tpu_torch.ops.silk.core_kernel import silk_core
     from esp32_opus_player_tpu_torch.ops.silk.lpc_synth import lpc_synth
@@ -318,8 +388,7 @@ def test_silk_core_dispatch(dev, rows):
         np.random.default_rng(rows), rows, 16, 4))
     n7, n5 = silk_core.launches, lpc_synth.launches
     tc.silk_core_frame(*args, fs_khz=16, nb_subfr=4, order=16)
-    assert (silk_core.launches - n7, lpc_synth.launches - n5) == \
-        ((1, 0) if rows >= 128 else (0, 4))
+    assert (silk_core.launches - n7, lpc_synth.launches - n5) == (1, 0)
 
 
 @pytest.mark.parametrize("names,n,K", [

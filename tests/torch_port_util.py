@@ -155,3 +155,21 @@ def port_synth_step(dm, pre, X, bandE, start, end, c1, c2, tr, **kw):
         tuple(map(t32, c2)), torch.as_tensor(tr), **kw)
     return (np.moveaxis(pcmT.numpy(), 2, 0), np.moveaxis(dmT.numpy(), 2, 0),
             pre2.numpy())
+
+
+def imdct_tdac_inputs(rng, B, LM, flags):
+    """Random inputs of K1's fused entry (one channel of one frame), as
+    numpy: freq (N, B) int32, each stream's values within +-2^22 or
+    +-2^27 (the larger drive the finished samples past SIG_SAT, so the
+    clamp is exercised), dcc (2168, B) int32 (decode_mem, its history
+    rows included) and tr (B,) bool. flags: "false", "true", "third"
+    (every 3rd stream transient) or "random"."""
+    N = 120 << LM
+    mag = rng.choice(np.array([1 << 22, 1 << 27]), size=B)
+    freq = (rng.integers(-(1 << 30), 1 << 30, (N, B)) % (2 * mag)
+            - mag).astype(np.int32)
+    dcc = rng.integers(-(1 << 28), 1 << 28, (DBS + OV, B)).astype(np.int32)
+    tr = dict(false=np.zeros(B, bool), true=np.ones(B, bool),
+              third=np.arange(B) % 3 == 2,
+              random=rng.integers(0, 2, B).astype(bool))[flags]
+    return freq, dcc, tr

@@ -4,7 +4,7 @@ phase cut out, each built into its own library and timed in turns.
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 tools/kernel_variants.py [k3] [k6] [k8] [k9] [--rounds 3]
+    python3 tools/kernel_variants.py [k1] [k3] [k6] [k8] [k9] [--rounds 3]
 
 A variant is a list of (text, replacement) edits to one source file;
 each text must occur in it. A phase is cut by making its loop run zero
@@ -12,7 +12,9 @@ times or its branch never taken, so the kernel still writes its outputs
 (no longer the right values) and nvcc keeps the other phases. Each
 variant is timed as chip_smoke.py times a kernel (one wrapper call
 captured in a CUDA graph, replayed between CUDA events), at the path's
-shape: K3 at CC 1, B 2048; K6 as its bare entry (B 2048, n 160) and as
+shape: K1's fused entry at LM 3, B 2048, with no stream, a seeded half
+or every stream transient (its history rows restored before each
+variant's bits are taken); K3 at CC 1, B 2048; K6 as its bare entry (B 2048, n 160) and as
 its fused one (WB, B 2048, the 304-sample block as a column slice); K8
 at WB (16, 4, 16), B 2048, and K9 at B 2048, frame 320, order 16, every
 10th row on, their operands column slices as the pool passes them. The
@@ -35,6 +37,24 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # file, then variant name -> edits (text, replacement); every occurrence
 # of a text is replaced
 VARIANTS = {
+    "k1": ("celt_fft.cu", {
+        "as committed": [],
+        "no FFT stages": [("for (int st = 0; st < a.nstage[pl]; ++st) {",
+                           "for (int st = a.nstage[pl]; st < a.nstage[pl]; "
+                           "++st) {")],
+        "no pre/post rotation": [
+            ("for (int j = lane; j < rows; j += 32) {",
+             "for (int j = rows + lane; j < rows; j += 32) {")],
+        "no spectrum staging": [("for (int base = tid; base < n;",
+                                 "for (int base = n + tid; base < n;")],
+        "no epilogue": [("for (int r = tid / S; r < N + kHalfOverlap;",
+                         "for (int r = N + kHalfOverlap + tid / S; "
+                         "r < N + kHalfOverlap;")],
+        "radix-4 m=1 by words": [("if constexpr (S == 1) {",
+                                  "if constexpr (S == 0) {")],
+        "4 streams a block": [("kTdacStreams = 8;", "kTdacStreams = 4;")],
+        "16 streams a block": [("kTdacStreams = 8;", "kTdacStreams = 16;")],
+    }),
     "k3": ("celt_deemph.cu", {
         "as committed": [],
         "product by IMAD.WIDE and a shift": [
@@ -138,8 +158,10 @@ def cases(dev):
     import numpy as np
     import torch
     sys.path.insert(0, str(ROOT / "tests"))
-    from torch_port_util import DBS, OV, column_slices, silk_plc_inputs
+    from torch_port_util import (DBS, OV, column_slices, imdct_tdac_inputs,
+                                 silk_plc_inputs)
     from esp32_opus_player_tpu_torch.ops.celt.deemph import deemphasis_T
+    from esp32_opus_player_tpu_torch.ops.celt.fft import celt_imdct_tdac_T
     from esp32_opus_player_tpu_torch.ops.silk.cng_kernel import cng_add
     from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import (
         silk_plc_conceal)
@@ -172,7 +194,17 @@ def cases(dev):
                          rng.integers(1 << 8, 1 << 14, 2048),
                          rng.integers(-2 ** 31, 2 ** 31, (2048, 16))], dev)
     cng.append(torch.arange(2048, device=dev) % 10 == 3)
-    return {"k3": {"": lambda: deemphasis_T(syn, mem)},
+    k1 = {}
+    for flags in ("false", "random", "true"):
+        f, d, tr = imdct_tdac_inputs(rng, 2048, 3, flags)
+        f, d = (torch.as_tensor(a, device=dev) for a in (f, d))
+        tr = torch.as_tensor(tr, device=dev)
+        work = d.clone()
+        k1[flags] = (lambda f=f, w=work, tr=tr: [celt_imdct_tdac_T(f, w, tr,
+                                                                  LM=3)],
+                     lambda d=d, w=work: w.copy_(d))
+    return {"k1": k1,
+            "k3": {"": lambda: deemphasis_T(syn, mem)},
             "k6": {"bare": lambda: up2_hq(S, x160),
                    "fused": lambda: up2_fir(S, F, x304, **fir)},
             "k8": {"": lambda: silk_plc_conceal(*plc, **kw)},
@@ -181,8 +213,8 @@ def cases(dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernels", nargs="*", help="k3, k6, k8, k9 (default "
-                    "all)")
+    ap.add_argument("kernels", nargs="*", help="k1, k3, k6, k8, k9 "
+                    "(default all)")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     args.kernels = args.kernels or list(VARIANTS)
@@ -205,16 +237,23 @@ def main() -> int:
                     for name, edits in variants.items()}
             outs, ms = {}, {name: {c: [] for c in calls[k]}
                             for name in variants}
+            # a call is fn, or (fn, reset) for one that updates its
+            # inputs in place: reset restores them before the bits
+            fns = {c: v if isinstance(v, tuple) else (v, None)
+                   for c, v in calls[k].items()}
             for name, lib in libs.items():
                 _build._lib = lib
-                outs[name] = [t.clone() for fn in calls[k].values()
-                              for t in fn()]
+                outs[name] = []
+                for fn, reset in fns.values():
+                    if reset is not None:
+                        reset()
+                    outs[name] += [t.clone() for t in fn()]
             torch.cuda.synchronize()
             for r in range(args.rounds):
                 order = list(libs) if r % 2 == 0 else list(libs)[::-1]
                 for name in order:
                     _build._lib = libs[name]
-                    for c, fn in calls[k].items():
+                    for c, (fn, _) in fns.items():
                         ms[name][c].append(device_ms(fn, 20))
             # one call: variant -> ms per round, as before
             if list(calls[k]) == [""]:
