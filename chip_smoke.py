@@ -21,15 +21,25 @@ Phases (any failure exits non-zero; there is no CPU path):
    K2, K3, K6-K9, are first held at widths that leave their tiles
    ragged (K3 at every downsample factor), K2, K7 and K8 at the lag
    edges, K6-K9 also on misaligned column slices; K3 is timed at both
-   paths' shapes (CC 1, B 2048 and CC 2, B 1024); K6 as its bare entry
+   paths' shapes (CC 1, B 2048 and CC 2, B 1024); K2 and K3 also at the
+   frames of 2.5, 5 and 10 ms (N 120, 240, 480, B 2048); K6 as its bare
+   entry
    and as its fused one (the resampler's FIR as its epilogue, what the
    SILK pools launch), beside the chain the fused entry replaced;
 4. the CELT path through StreamPool.run(): a mono pool of 2048 streams in
    K = 64 windows and a stereo pool of 1024 streams per frame, every
    stream bit-equal to tests/golden; then a small CELT pool with packet
-   loss, card against CPU. Every wrapper's launch count is set to 0
-   once, just before the first pool, and read once after the last pool
-   of phase 6; each pool prints the launches it made. One call of K1's
+   loss, card against CPU; then RFC-mode CELT at every frame size and
+   below fullband: 2048 streams over five fixtures (2.5, 5, 10, 20 ms;
+   NB, SWB, FB; mono and stereo) in a stereo pool in K = 16 windows,
+   one lane per (LM, coded channels), every stream bit-equal to a CPU
+   pool of one stream per fixture; then entry()'s function (the
+   row-layout step, K1-K3 behind transposes) at B 8 and 2048 against
+   its plain version on the CPU. Every wrapper's launch count is set to
+   0 just before each path (each pool, each entry() run) and read just
+   after; each path prints the launches it made, and the slice's paths
+   (the mixed pool, entry()) must have launched K1's fused entry, K2
+   and K3. One call of K1's
    fused entry in each of the two large pools is kept (the first with a
    transient stream) and, after the pools, held and timed again on those
    inputs (the fixtures' own flags);
@@ -220,18 +230,22 @@ def k2_work(N: int, c1, c2) -> tuple:
     """Both comb calls of a frame, from this run's params: a region whose
     gains are both 0 does nothing; an active row reads its N rows and
     max(T) + 2 rows of history and writes the rows of its active
-    regions. Per sample: 3 gain products and 5 sums with the clip (13),
+    regions (a frame of N 120 has region 1 only). Per sample: 3 gain
+    products and 5 sums with the clip (13),
     30 in the 120-sample crossfade (both parameter sets and the
     window)."""
     import numpy as np
     T = [np.maximum(c[0].cpu().numpy(), c[1].cpu().numpy()) for c in (c1, c2)]
     act = [((c[2] != 0) | (c[3] != 0)).cpu().numpy() for c in (c1, c2)]
+    if N <= 120:                        # a 2.5 ms frame: region 1 only
+        act[1] = np.zeros_like(act[1])
     any_act = act[0] | act[1]
     Tmax = np.where(act[0] & act[1], np.maximum(T[0], T[1]),
                     np.where(act[0], T[0], T[1]))
     reads = np.where(any_act, N + Tmax + 2, 0).sum() + 12 * len(T[0])
-    writes = (act[0] * 120 + act[1] * (N - 120)).sum()
-    ops = (act[0] * 120 * 30 + act[1] * (N - 120) * 13).sum()
+    n1 = min(N, 120)
+    writes = (act[0] * n1 + act[1] * (N - n1)).sum()
+    ops = (act[0] * n1 * 30 + act[1] * (N - n1) * 13).sum()
     return float(reads + writes) * 4, float(ops)
 
 
@@ -417,14 +431,14 @@ def check_celt_kernels(dev, card, sm_hz):
         v[3][16:24] = 0                        # g1 = 0 rows
         return tuple(t32(a) for a in v)
 
-    def k2_case(Bn, lag=None):
+    def k2_case(Bn, lag=None, N=960):
         c1, c2 = params(Bn, lag), params(Bn, lag)
         buf = t32(rng.integers(-(1 << 26), 1 << 26, (DBS + OV, Bn)))
-        want = comb_filter_step_T_ref(buf.clone(), DBS - 960, 960, c1, c2)
-        got = comb_filter_step_T(buf.clone(), DBS - 960, 960, c1, c2)
+        want = comb_filter_step_T_ref(buf.clone(), DBS - N, N, c1, c2)
+        got = comb_filter_step_T(buf.clone(), DBS - N, N, c1, c2)
         if not same([got], [want]):
-            raise SystemExit(f"K2 (B {Bn}, lags {lag}) differs from its "
-                             f"plain version: {max_err(got, want)}")
+            raise SystemExit(f"K2 (B {Bn}, N {N}, lags {lag}) differs from "
+                             f"its plain version: {max_err(got, want)}")
         return buf, c1, c2, max_err(got, want)
 
     # widths around the 8-stream tile, every lag at either edge, then the
@@ -441,19 +455,33 @@ def check_celt_kernels(dev, card, sm_hz):
         **bound(*k2_work(960, c1, c2), sm_hz))
     report(card, f"K2 comb_filter_step_T, also B in (1, 7, 9, 2047) and "
            f"all lags 15 / 1024; timed: N=960, B={B}", res["K2"])
+    # the frames of 2.5, 5 and 10 ms (LM 0-2: N 120 runs region 1 only)
+    res["K2"]["by_N"] = {}
+    for N in (120, 240, 480):
+        bufN, d1, d2, e = k2_case(B, N=N)
+        res["K2"]["max_abs_err"] = max(res["K2"]["max_abs_err"], e)
+        workN = bufN.clone()
+        t = dict(**timings(
+            lambda: comb_filter_step_T(workN, DBS - N, N, d1, d2),
+            lambda: comb_filter_step_T_ref(workN, DBS - N, N, d1, d2), 20),
+            **bound(*k2_work(N, d1, d2), sm_hz))
+        report(card, f"K2 comb_filter_step_T, N={N}, B={B}", t)
+        res["K2"]["by_N"][N] = {k: t[k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")}
 
     # K3: widths around a block's 8 columns at CC 1 and CC 2, every
     # downsample factor; then timed at CC 1 (B = 2048, the mono pool) and
-    # CC 2 (B = 1024, stereo), both on a strided view of decode_mem
-    def k3_case(CC, nb, d=1):
+    # CC 2 (B = 1024, stereo), both on a strided view of decode_mem, and
+    # at N 120, 240 and 480 (CC 1, B 2048)
+    def k3_case(CC, nb, d=1, N=960):
         dm = t32(rng.integers(-(1 << 28), 1 << 28, (CC, DBS + OV, nb)))
         mem = t32(rng.integers(-(1 << 20), 1 << 20, (nb, CC)))
-        syn = dm[:, DBS - 960:DBS]
+        syn = dm[:, DBS - N:DBS]
         got = deemphasis_T(syn, mem, d)
         want = deemphasis_T_ref(syn, mem, d)
         if not same(got, want):
-            raise SystemExit(f"K3 (CC {CC}, B {nb}, downsample {d}) differs "
-                             f"from its plain version")
+            raise SystemExit(f"K3 (CC {CC}, B {nb}, N {N}, downsample {d}) "
+                             f"differs from its plain version")
         return syn, mem, max(max_err(got[0], want[0]),
                              max_err(got[1], want[1]))
 
@@ -474,8 +502,17 @@ def check_celt_kernels(dev, card, sm_hz):
         report(card, f"K3 deemphasis_T, CC={CC}, B={nb}", t)
         if CC == 1:
             res["K3"] = t
-    res["K3"].update(max_abs_err=err, ms_cc2=t["ms"],
-                     bound_ms_cc2=t["bound_ms"])
+    res["K3"].update(ms_cc2=t["ms"], bound_ms_cc2=t["bound_ms"], by_N={})
+    for N in (120, 240, 480):
+        syn, mem, e = k3_case(1, B, N=N)
+        err = max(err, e)
+        t = dict(**timings(lambda: deemphasis_T(syn, mem),
+                           lambda: deemphasis_T_ref(syn, mem), 20),
+                 **bound(B * (N * 4 + N * 2 + 8), B * N * 8, sm_hz))
+        report(card, f"K3 deemphasis_T, CC=1, N={N}, B={B}", t)
+        res["K3"]["by_N"][N] = {k: t[k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")}
+    res["K3"]["max_abs_err"] = err
     print(f"[{card}] K3 also at B in (1, 7, 9, 15, 17, 2047) (CC 1) and "
           f"1023 (CC 2), downsample 1/2/3/4/6: bit-equal")
 
@@ -814,6 +851,63 @@ def check_loss_kernels(dev, card, sm_hz):
     return res
 
 
+def check_entry(card, counted) -> dict:
+    """entry()'s function (the row-layout CELT step, models/batch_celt.py)
+    on the card at B 8 and B 2048, two chained steps each, bit-equal to
+    its plain version (the row functions on the CPU, same args); each
+    card run counted as a path of its own (K1's fused entry, K2 and K3
+    behind the transposes). At B 2048 it is timed as eager stream time
+    beside the transposed step on the same inputs already transposed,
+    and the transposes alone as device time (CUDA graph)."""
+    import torch
+    from esp32_opus_player_tpu_torch.entry import entry
+    from esp32_opus_player_tpu_torch.ops.celt.synthesis_T import (
+        celt_synth_step_dual_T)
+
+    def two_steps(fn, args):
+        outs = []
+        for _ in range(2):
+            out = fn(*args)
+            outs += list(out)
+            args = (out[1], out[2]) + tuple(args[2:])
+        return outs
+
+    res = {}
+    for Bn in (8, B):
+        fn, args = entry(B=Bn)
+        _, cargs = entry(device="cpu", B=Bn)
+        got = counted(f"entry() at B {Bn}", lambda: two_steps(fn, args))
+        want = two_steps(fn, cargs)
+        if any(g.shape != w.shape or not torch.equal(g.cpu(), w)
+               for g, w in zip(got, want)):
+            raise SystemExit(f"entry() at B {Bn} differs from its plain "
+                             f"version")
+        res[Bn] = max(max_err(g.cpu(), w) for g, w in zip(got, want))
+        print(f"[{card}] entry() at B {Bn} (two steps): pcm, decode_mem and "
+              f"preemph bit-equal to the plain version on the CPU")
+    dm, pre, X, bandE, start, end, c1, c2 = args
+    dmT = dm.permute(1, 2, 0).contiguous()
+    XT = X.permute(1, 2, 0).contiguous()
+    tr = torch.zeros(B, dtype=torch.bool, device=dm.device)
+    pcmT = celt_synth_step_dual_T(dmT, pre, XT, bandE, start, end, c1, c2,
+                                  tr, LM=3, C=1, CC=1)[0]
+    t = dict(
+        max_abs_err=max(res.values()), row_eager_ms=eager_ms(
+            lambda: fn(*args), 20),
+        transposed_eager_ms=eager_ms(lambda: celt_synth_step_dual_T(
+            dmT, pre, XT, bandE, start, end, c1, c2, tr, LM=3, C=1, CC=1),
+            20),
+        transposes_ms=device_ms(lambda: (
+            dm.permute(1, 2, 0).contiguous(), X.permute(1, 2, 0).contiguous(),
+            pcmT.permute(2, 0, 1).to(torch.int32),
+            dmT.permute(2, 0, 1).contiguous()), 20))
+    print(f"[{card}] entry() step, B={B}: eager stream time "
+          f"{t['row_eager_ms']:.4f} ms; the transposed step on the same "
+          f"inputs {t['transposed_eager_ms']:.4f} ms; the four transposes "
+          f"alone (device time, CUDA graph) {t['transposes_ms']:.4f} ms")
+    return t
+
+
 def golden(name):
     import numpy as np
     return np.fromfile(ROOT / "tests" / "golden" / f"{name}.pcm",
@@ -825,11 +919,11 @@ def fixture(name):
 
 
 def run_pool(dev, card, label, names, n, K, channels=1, twins=None,
-             loss=None, fec=False, **kw):
+             loss=None, fec=False, min_len=90000, **kw):
     """One pool of n streams (names[i % len(names)]) through
     StreamPool.run(), every stream held against tests/golden, or, with
-    twins (a list of PCM arrays), stream i against twins[i % len(twins)].
-    Returns the PCM."""
+    twins (a list of PCM arrays), stream i against twins[i % len(twins)];
+    each stream at least min_len samples. Returns the PCM."""
     import numpy as np
     import torch
     from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
@@ -842,11 +936,13 @@ def run_pool(dev, card, label, names, n, K, channels=1, twins=None,
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     frames = int(sum(len(p.jobs) for p in pool.streams))
+    # seconds of audio decoded (frames x 0.02 s in a pool of 20 ms frames)
+    audio_s = sum(j.duration for p in pool.streams for j in p.jobs) / 48e3
     gold = {m: golden(m) for m in names}
     for i, out in enumerate(outs):
         if twins is not None:
             ref = twins[i % len(twins)]
-            if len(out) < 90000 or not np.array_equal(out, ref):
+            if len(out) < min_len or not np.array_equal(out, ref):
                 raise SystemExit(f"{label} pool stream {i} differs from "
                                  f"its CPU twin")
             continue
@@ -866,7 +962,8 @@ def run_pool(dev, card, label, names, n, K, channels=1, twins=None,
     print(f"[{card}] {label} pool B={n} K={K}: all {n} streams bit-equal "
           f"to {what}; {frames} frames; setup {t1 - t0:.3f} s; run "
           f"{t2 - t1:.3f} s wall = {fps:.1f} frames/s = "
-          f"{fps * 0.02:.1f} realtime streams; device {dev_ms:.3f} ms in "
+          f"{audio_s / (t2 - t1):.1f} realtime streams; device {dev_ms:.3f} "
+          f"ms in "
           f"{len(win)} windows = {dev_ms / len(win):.3f} ms/window, "
           f"{dev_ms / steps:.4f} ms/frame step; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
@@ -930,11 +1027,19 @@ def main() -> int:
     def launch_counts():
         return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
 
+    # each path's counts: set to 0 just before it, read just after
+    totals = dict.fromkeys(wrappers, 0)
+    paths = {}
+
     def counted(label, run):
-        before = launch_counts()
+        for ws in wrappers.values():
+            for w in ws:
+                w.launches = 0
         out = run()
-        made = {k: v - before[k] for k, v in launch_counts().items()
-                if v != before[k]}
+        made = {k: v for k, v in launch_counts().items() if v}
+        for k, v in made.items():
+            totals[k] += v
+        paths[label] = made
         print(f"[{card}] launches in {label}: {made}")
         return out
 
@@ -954,10 +1059,6 @@ def main() -> int:
         finally:
             synthesis_T.celt_imdct_tdac_T = fft.celt_imdct_tdac_T
 
-    for ws in wrappers.values():
-        for w in ws:
-            w.launches = 0
-
     # the CELT path
     counted("the CELT mono pool", lambda: capturing("mono", lambda: run_pool(
         dev, card, "CELT mono", ["celt_fb_mono_20ms",
@@ -976,6 +1077,25 @@ def main() -> int:
         raise SystemExit("lossy CELT pool: card and CPU differ")
     print("lossy CELT pool (4 streams, K=3, every 5th packet lost): "
           "card == CPU")
+
+    # RFC-mode CELT at every frame size (2.5, 5, 10, 20 ms) and below
+    # fullband in one stereo pool: one lane per (LM, coded channels), each
+    # with its own state and K = 16 window; every card stream held to its
+    # twin in a CPU pool of one stream per fixture
+    mixed = ["celt_fb_mono_5ms", "celt_fb_stereo_2p5ms",
+             "celt_swb_stereo_10ms", "celt_nb_mono_20ms",
+             "celt_fb_mono_20ms"]
+    t0 = time.perf_counter()
+    mtwins = StreamPool([fixture(m) for m in mixed], channels=2,
+                        compat_ref=False, superstep_k=16,
+                        device="cpu").run()
+    print(f"mixed-LM CELT twins ({len(mixed)} streams on the CPU): "
+          f"{time.perf_counter() - t0:.1f} s")
+    mlabel = "the mixed-LM RFC CELT pool"
+    counted(mlabel, lambda: run_pool(
+        dev, card, "CELT mixed LM (RFC, 2.5/5/10/20 ms)", mixed, B, 16,
+        channels=2, twins=mtwins, min_len=20000, compat_ref=False))
+    entry_t = check_entry(card, counted)
 
     # the mono SILK path
     counted("the SILK WB pool (2048-row bucket)", lambda: run_pool(
@@ -1031,8 +1151,13 @@ def main() -> int:
     print("compat-loss SILK pool (4 WB streams, K=3, every 7th packet "
           "lost): card == tests/golden loss7")
 
-    launches = launch_counts()
-    print(f"[{card}] launches over every pool: {launches}")
+    launches = totals
+    print(f"[{card}] launches over every path: {launches}")
+    for label in (mlabel, "entry() at B 8", f"entry() at B {B}"):
+        missing = [k for k in ("K1", "K2", "K3") if not paths[label].get(k)]
+        if missing or paths[label].get("K1 bare"):
+            raise SystemExit(f"{label} did not run through K1's fused entry, "
+                             f"K2 and K3: {paths[label]}")
     # off every pool's path: K4, as in the JAX package (the CELT frame
     # step runs K2 and K3 apart); K1's bare entry, since the frame step
     # runs the fused one; K5, since every SILK bucket on the card takes
@@ -1090,7 +1215,11 @@ def main() -> int:
         bare_launches=launches["K1 bare"],
         **{"bare_" + k: res["K1 bare"][k] for k in keys})
     kernels[2].update(ms_cc2=res["K3"]["ms_cc2"],
-                      bound_ms_cc2=res["K3"]["bound_ms_cc2"])
+                      bound_ms_cc2=res["K3"]["bound_ms_cc2"],
+                      by_N=res["K3"]["by_N"])
+    kernels[1]["by_N"] = res["K2"]["by_N"]
+    # the row-layout step (entry()) on K1-K3 behind its transposes
+    kernels[0]["entry_step"] = entry_t
     kernels[3]["k2_then_k3_ms"] = res["K4"]["k2_then_k3_ms"]
     # K7 at a 16-row bucket too (the 48-stream pool's)
     kernels[6].update(ms_b16=res["K7"]["ms_b16"],

@@ -1,10 +1,11 @@
 """esp32_opus_player_tpu_torch: the PyTorch/CUDA port of
 esp32_opus_player_tpu.
 
-The host layer (Ogg demux, native CELT/SILK symbol phase, tables) is
-shared with the JAX package, which the port imports but never its JAX
-modules. The device layer is torch: plain torch around hand-written
-CUDA kernels (csrc/), each with a plain torch twin that CPU tensors take.
-Ported so far: the uniform fullband 20 ms CELT pool
-(models.stream_pool.StreamPool).
+It imports neither JAX nor the JAX package: it keeps its own copy of the
+host layer (Ogg demux, the native CELT/SILK symbol phase, tables). The
+device layer is torch: plain torch around hand-written CUDA kernels
+(csrc/), each with a plain torch version that CPU tensors take. Entry
+points: models.stream_pool.StreamPool (CELT at every frame size, mono
+SILK with loss), entry.entry() (one batched CELT synthesis step) and the
+bench, `python -m esp32_opus_player_tpu_torch.bench`.
 """

@@ -102,13 +102,15 @@ class CeltGroup:
     state)."""
 
     def __init__(self, idxs, job_lists, spf: int, channels: int,
-                 start: int, ends, n_threads: int = 0):
+                 start: int, ends, n_threads: int = 0, C: int = 0):
+        """channels: the decoder's output channels (CC); C: the coded
+        channels of the group's packets (0: the same as CC)."""
         self.idxs = list(idxs)
         m = len(self.idxs)
         self.table = FrameTable(job_lists)
         self.spf = spf
         self.channels = channels           # CC
-        self.C = 2 if channels == 2 else 1
+        self.C = C or (2 if channels == 2 else 1)
         self.start = np.full(m, start, dtype=np.int32)
         self.ends = np.asarray(ends, dtype=np.int32)
         self.states = StateArray(m, CeltHostState)

@@ -1,10 +1,11 @@
 """StreamPool: decode many concurrent Ogg/Opus streams with torch.
 
-Port of the uniform-CELT transposed ("T-mode") path and the mono SILK
-path of esp32_opus_player_tpu/models/stream_pool.py. The streams fall
-into lanes: one CELT lane over the whole pool, or one SILK lane per
-internal rate (8, 12, 16 kHz), each a device bucket of its streams in
-row order. Per step, for each lane:
+Port of the CELT transposed ("T-mode") path and the mono SILK path of
+esp32_opus_player_tpu/models/stream_pool.py. The streams fall into
+lanes: one CELT lane per frame size (LM 0-3) and coded channel count
+(the JAX pool's (LM, C) superstep keys), or one SILK lane per internal
+rate (8, 12, 16 kHz), each a device bucket of its streams in row order
+with its own state and its own K-frame window. Per step, for each lane:
 
 1. host: the batched native symbol phase over its streams with a packet
    left (models/host_groups.py, the port's copy);
@@ -17,10 +18,20 @@ row order. Per step, for each lane:
    works while the next steps' symbol phases run), trimmed (pre-skip,
    end-trim) and appended per stream.
 
-Supported: uniform 20 ms (LM 3) CELT-only streams (compat_ref=True, or
-RFC mode at fullband), channels 1 or 2; mono SILK-only streams with one
-20 ms frame per packet at a constant bandwidth, channels 1. Both with
+Supported: CELT-only streams with one frame per packet, channels 1 or
+2: in compat mode (compat_ref=True) 20 ms frames only; in RFC mode
+2.5, 5, 10 and 20 ms frames at any one bandwidth per stream (the end
+band per bandwidth, _ENDBAND_OF_BW); mono SILK-only streams with one 20
+ms frame per packet at a constant bandwidth, channels 1. Both with
 superstep_k >= 1, out_fs 48000, output "host".
+
+stats() gives the JAX pool's counters, and _phase_s its per-phase host
+wall time (seconds): host_symbol (the batched symbol phase and, for
+lost SILK rows, the conceal preps and FEC decodes), dispatch (staging
+and the device enqueues), materialize (the PCM fetch and the routing to
+the streams). _fetch_s is the part of materialize spent in the fetch
+itself, _Window.host(): the wait for the window's frame steps and its
+copy to the host.
 
 Lost packets (step(lost=, fec=), run(loss=, fec=)): a lost CELT packet
 gives silence and leaves the stream's state untouched, a masked row. A
@@ -39,6 +50,7 @@ from __future__ import annotations
 import collections
 import os
 import pathlib
+import time
 
 import numpy as np
 import torch
@@ -48,16 +60,16 @@ from ..host.native import PlcTrackerState, StateArray
 from ..host.packet import (Mode, get_bandwidth, get_nb_channels,
                            get_nb_frames, get_samples_per_frame)
 from ..ops.celt.torch_synthesis import (DECODE_BUFFER_SIZE, NB_EBANDS,
-                                        OVERLAP)
+                                        OVERLAP, SHORT_MDCT_SIZE)
 from . import host_groups as hg
 from . import silk_pool
 from .batch_silk import LAST_LOST_WORD, NativePlcTracker, good_frames
 from .celt_pool_T import _CELT_HDR, celt_pool_superstep_T
 
-_FULLBAND = 1105
 _FS_OF_BW = {1101: 8, 1102: 12, 1103: 16}    # SILK-only: NB, MB, WB
-_LM = 3
-_N = 960
+# CELT end band per bandwidth (opus_decode_frame, src/opus_decoder.cpp:199)
+_ENDBAND_OF_BW = {1101: 13, 1102: 17, 1103: 17, 1104: 19, 1105: 21}
+_LM_OF_SPF = {120: 0, 240: 1, 480: 2, 960: 3}
 
 
 def _todo(what: str, item: str):
@@ -91,6 +103,9 @@ class _Lane:
     window of K frames on the host, pinned on a card so the upload is
     asynchronous. Subclasses fill a staging frame, run a window and cut
     a frame's PCM per stream."""
+
+    N = 960                       # samples a frame at 48 kHz
+    kind = ""                     # the stats() frame counter it adds to
 
     def __init__(self, pool, group, idxs, width: int, dtype):
         self.pool = pool
@@ -151,16 +166,20 @@ class _Lane:
 
 
 class _CeltLane(_Lane):
-    """Uniform fullband 20 ms CELT over the whole pool, transposed state
-    (models/celt_pool_T.py)."""
+    """The CELT streams of one frame size N = 120 << LM and one coded
+    channel count C, transposed state (models/celt_pool_T.py); `ends` is
+    each stream's end band."""
 
-    def __init__(self, pool):
-        g = hg.CeltGroup(list(range(pool.n)),
-                         [s.jobs for s in pool.streams], _N, pool.channels,
-                         0, [21] * pool.n)
+    kind = "celt"
+
+    def __init__(self, pool, LM: int, C: int, idxs, ends):
+        self.LM, self.N = LM, SHORT_MDCT_SIZE << LM
+        g = hg.CeltGroup(idxs, [pool.streams[i].jobs for i in idxs], self.N,
+                         pool.channels, 0, ends, C=C)
         self.C = g.C
-        super().__init__(pool, g, range(pool.n),
-                         _CELT_HDR + 2 * NB_EBANDS + g.C * _N, torch.int16)
+        super().__init__(pool, g, idxs,
+                         _CELT_HDR + 2 * NB_EBANDS + g.C * self.N,
+                         torch.int16)
         CC = pool.channels
         self.state = {
             "decode_mem": torch.zeros(
@@ -169,6 +188,7 @@ class _CeltLane(_Lane):
             "preemph": torch.zeros((self.n, CC), dtype=torch.int32,
                                    device=pool.device),
         }
+        self.bucket = ("celtT", LM, self.C, CC, self.n)
 
     def fill(self, stg, sel, info=None) -> None:
         g = self.group
@@ -184,8 +204,8 @@ class _CeltLane(_Lane):
 
     def run(self, stgK, masked, aux=None):
         return celt_pool_superstep_T(
-            self.state["decode_mem"], self.state["preemph"], stgK, LM=_LM,
-            C=self.C, CC=self.pool.channels, masked=masked)
+            self.state["decode_mem"], self.state["preemph"], stgK,
+            LM=self.LM, C=self.C, CC=self.pool.channels, masked=masked)
 
     @staticmethod
     def frames(frame, sel):
@@ -202,6 +222,7 @@ class _SilkLane(_Lane):
     its bucket row, `cx_off` the row count at each frame's start)."""
 
     NB = 4
+    kind = "silk"
 
     def __init__(self, pool, fs: int, idxs):
         g = hg.SilkGroup(idxs, [pool.streams[i].jobs for i in idxs], fs, 20)
@@ -214,6 +235,7 @@ class _SilkLane(_Lane):
                          silk_pool.stage_width(self.frame, self.NB, self.plc),
                          torch.int32)
         self.state = silk_pool.make_bucket(self.n, fs, pool.device)
+        self.bucket = ("silk", fs, 20, 1, self.n)
         self.glue: list[bool] = []
         if self.plc:
             self.trk_states = StateArray(self.n, PlcTrackerState)
@@ -242,18 +264,21 @@ class _SilkLane(_Lane):
         """The host work of one step after the batched symbol decode of
         the good rows (`ok`): recover or prepare the rows in `lost` (fec:
         the rows among them that may take the next packet's LBRR copy;
-        pos: every row's packet index). Returns (sel, info): the rows
-        that take part in the frame, and for `fill` the conceal preps by
-        row and the glue flags of the decoded rows."""
+        pos: every row's packet index). Returns (sel, info, n_fec): the
+        rows that take part in the frame, for `fill` the conceal preps by
+        row and the glue flags of the decoded rows, and the number of
+        lost rows the LBRR copy recovered."""
         g, pool = self.group, self.pool
         decoded = ok.copy()
         preps = {}
+        n_fec = 0
         for r in np.nonzero(lost)[0].tolist():
             p = None
             if fec[r] and pos[r] + 1 < g.table.n_packets[r]:
                 # the LBRR copy in the NEXT packet, which stays unread
                 p = g.hosts[r].fec_frame(g.frame0(r, int(pos[r]) + 1),
                                          self.fs, 20)
+                n_fec += p is not None
             if p is None and pool.compat_ref:
                 # compat: the normal frame path over an empty bitstream
                 p = g.hosts[r].frame(b"", self.fs)
@@ -274,7 +299,7 @@ class _SilkLane(_Lane):
             good_frames(self.trk_states, rows, g.buf)
             glue = self.last_lost[rows]
             self.last_lost[rows] = 0
-        return np.nonzero(decoded | lost)[0], (rows, preps, glue)
+        return np.nonzero(decoded | lost)[0], (rows, preps, glue), n_fec
 
     def fill(self, stg, sel, info=None) -> None:
         b, F = self.group.buf, self.frame
@@ -369,14 +394,25 @@ class StreamPool:
         self._ss_k = int(superstep_k)
         self.positions = np.zeros(self.n, dtype=np.int64)
         self.pcm_out = [[] for _ in range(self.n)]
+        # one lane per CELT (LM, coded channels) or SILK rate, streams in
+        # index order
+        by_key = collections.defaultdict(list)
+        for i, k in enumerate(kinds):
+            by_key[k[:-1] if k[0] == "celt" else k].append(i)
         if kinds[0][0] == "celt":
-            self._lanes = [_CeltLane(self)]
+            self._lanes = [_CeltLane(self, LM, C, idxs,
+                                     [kinds[i][-1] for i in idxs])
+                           for (_, LM, C), idxs in sorted(by_key.items())]
         else:
-            by_fs = collections.defaultdict(list)
-            for i, (_, fs) in enumerate(kinds):
-                by_fs[fs].append(i)
             self._lanes = [_SilkLane(self, fs, idxs)
-                           for fs, idxs in sorted(by_fs.items())]
+                           for (_, fs), idxs in sorted(by_key.items())]
+        self._stats = dict(steps=0, frames=0, bytes_in=0, samples_out=0,
+                           frames_celt=0, frames_silk=0, frames_hybrid=0,
+                           frames_scalar=0, frames_lost=0, frames_fec=0,
+                           buckets={})
+        self._phase_s = dict(host_symbol=0.0, dispatch=0.0,
+                             materialize=0.0)
+        self._fetch_s = 0.0
         # CUDA events around the frame steps of the latest windows
         self._win_events = collections.deque(maxlen=1024)
         # device work of step t is fetched at the end of step t+depth, so
@@ -387,8 +423,11 @@ class StreamPool:
 
     @property
     def state(self) -> dict:
-        """The CELT lane's state (decode_mem, preemph)."""
-        return self._lanes[0].state
+        """The state (decode_mem, preemph) of a pool with one CELT lane."""
+        lanes = [lane for lane in self._lanes if isinstance(lane, _CeltLane)]
+        if len(lanes) != 1:
+            raise ValueError(f"the pool has {len(lanes)} CELT lanes")
+        return lanes[0].state
 
     @property
     def silk_buckets(self) -> dict:
@@ -411,7 +450,9 @@ class StreamPool:
         return parsed[key]
 
     def _check_source(self, i: int, s):
-        """("celt",) or ("silk", fs) for a source the port decodes;
+        """("celt", LM, coded channels, end band) or ("silk", fs) for a
+        source the port
+        decodes (the JAX pool's classification, stream_pool.py:1322-1340);
         raises for the rest."""
         head = s.head
         if head is not None and (head.stream_count > 1
@@ -435,19 +476,28 @@ class StreamPool:
         if mode == Mode.SILK_ONLY:
             if self.channels == 2 or sch == 2:
                 raise _todo(f"stream {i}: stereo SILK", "10")
-            if spf != _N or nfr != 1:
+            if spf != 960 or nfr != 1:
                 raise _todo(f"stream {i}: SILK frames other than one 20 ms "
                             f"frame per packet", "12")
             if len(bws) != 1:
                 raise _todo(f"stream {i}: SILK bandwidth switches", "12")
             return ("silk", _FS_OF_BW[next(iter(bws))])
-        if spf != _N or nfr != 1:
-            raise _todo(f"stream {i}: CELT frames other than one 20 ms "
-                        f"frame per packet", "6")
-        if not self.compat_ref and bws != {_FULLBAND}:
-            # RFC mode codes the real end band per bandwidth
-            raise _todo(f"stream {i}: RFC-mode CELT below fullband", "6")
-        return ("celt",)
+        if nfr != 1:
+            raise _todo(f"stream {i}: multi-frame CELT packets (the scalar "
+                        f"decoders)", "12")
+        if self.compat_ref:
+            # compat mode is 20 ms only (the reference hard-codes audiosize
+            # 960) and pins end band 21 (src/celt.cpp:2199)
+            if spf != 960:
+                raise _todo(f"stream {i}: compat-mode CELT frames other "
+                            f"than 20 ms (the scalar decoders)", "12")
+            return ("celt", _LM_OF_SPF[spf], sch, 21)
+        if len(bws) != 1:
+            raise _todo(f"stream {i}: CELT bandwidth switches in RFC mode "
+                        f"(the scalar decoders)", "12")
+        # RFC mode codes the real end band per bandwidth
+        return ("celt", _LM_OF_SPF[spf], sch,
+                _ENDBAND_OF_BW[next(iter(bws))])
 
     # ------------------------------------------------------------ steps
     def step(self, lost=None, fec=None) -> bool:
@@ -460,8 +510,10 @@ class StreamPool:
         in-band SILK LBRR copy should reconstruct when it has one (that
         packet stays unread: the next step decodes it). Returns False
         once every stream is exhausted."""
+        t0 = time.perf_counter()
         lost = np.isin(np.arange(self.n), list(lost or ()))
         fec = np.isin(np.arange(self.n), list(fec or ())) & lost
+        st, ph = self._stats, self._phase_s
         parts = []
         for lane in self._lanes:
             g, idxs = lane.group, lane.idxs
@@ -473,53 +525,93 @@ class StreamPool:
             active = live & ~gone
             ok = g.decode(pos, active) if active.any() else active
             sel, info = np.nonzero(ok)[0], None
+            st["bytes_in"] += int(g.table.pkt_bytes[sel, pos[sel]].sum())
             if isinstance(lane, _SilkLane) and (lane.plc or gone.any()):
-                sel, info = lane.host_step(pos, ok, gone, fec[idxs])
+                sel, info, n_fec = lane.host_step(pos, ok, gone, fec[idxs])
+                st["frames_fec"] += n_fec
                 gone[sel] = False
             rows = np.nonzero(live)[0]
+            st["frames"] += rows.size
+            st[f"frames_{lane.kind}"] += rows.size
+            st["frames_lost"] += int((live & lost[idxs]).sum())
             part = dict(lane=lane, sel=sel, lost=np.nonzero(gone)[0],
                         rows=rows, disc=g.table.disc[rows, pos[rows]],
                         trim=g.table.trim[rows, pos[rows]], win=None, k=0)
             self.positions[idxs[live]] += 1
             if sel.size:
+                t1 = time.perf_counter()
+                ph["host_symbol"] += t1 - t0
                 part["win"], part["k"] = lane.stage(sel, info)
+                st["buckets"][lane.bucket] = st["buckets"].get(
+                    lane.bucket, 0) + 1
+                t0 = time.perf_counter()
+                ph["dispatch"] += t0 - t1
             parts.append(part)
+        ph["host_symbol"] += time.perf_counter() - t0
         if not parts:
             self._flush()
             return False
+        st["steps"] += 1
         self._pending.append(parts)
+        t0 = time.perf_counter()
         while len(self._pending) > self.pipeline_depth:
             self._route(self._pending.pop(0))
+        ph["materialize"] += time.perf_counter() - t0
         return True
 
     def _route(self, parts) -> None:
-        """Trim and append one step's PCM per stream."""
+        """Trim and append one step's PCM per stream (a lost CELT frame
+        as N samples of silence, N the lane's frame size)."""
         for p in parts:
             lane, idxs = p["lane"], p["lane"].idxs
             meta = {int(r): (int(d), int(t)) for r, d, t in
                     zip(p["rows"], p["disc"], p["trim"])}
             if p["sel"].size:
-                blk = lane.frames(p["win"].host()[p["k"]], p["sel"])
+                t0 = time.perf_counter()
+                frame = p["win"].host()[p["k"]]
+                self._fetch_s += time.perf_counter() - t0
+                blk = lane.frames(frame, p["sel"])
                 for pcm, r in zip(blk, p["sel"].tolist()):
                     self.pcm_out[idxs[r]].append(self._trim(pcm, *meta[r]))
             for r in p["lost"].tolist():
                 self.pcm_out[idxs[r]].append(self._trim(
-                    np.zeros((_N, self.channels), dtype=np.int16), *meta[r]))
+                    np.zeros((lane.N, self.channels), dtype=np.int16),
+                    *meta[r]))
 
-    @staticmethod
-    def _trim(pcm, lo: int, te: int):
+    def _trim(self, pcm, lo: int, te: int):
         # a copy, so the stream's PCM keeps no window buffer alive
         hi = pcm.shape[0] - te
-        return np.ascontiguousarray(pcm[lo:max(hi, lo)])
+        out = np.ascontiguousarray(pcm[lo:max(hi, lo)])
+        self._stats["samples_out"] += out.shape[0]
+        return out
 
     def _flush(self) -> None:
         """Dispatch every partial window and retire every pending step."""
+        t0 = time.perf_counter()
         for lane in self._lanes:
             if lane.masked:
                 lane.dispatch()
+        t1 = time.perf_counter()
+        self._phase_s["dispatch"] += t1 - t0
         pends, self._pending = self._pending, []
         for p in pends:
             self._route(p)
+        self._phase_s["materialize"] += time.perf_counter() - t1
+
+    def stats(self) -> dict:
+        """Decode counters (stream_pool.py:4456-4470 of the JAX package):
+        steps, frames, bytes_in (of the packets decoded), samples_out,
+        frames per kind (frames_hybrid and frames_scalar stay 0: no such
+        path is ported), frames_lost, frames_fec (lost frames the next
+        packet's LBRR copy recovered), buckets (device frames by lane:
+        ("celtT", LM, C, CC, rows) or ("silk", fs, 20, 1, rows)), phase_s,
+        streams and active_streams. Flushes the pipeline first."""
+        self._flush()
+        active = int(sum(int(p) < len(s.jobs)
+                         for p, s in zip(self.positions, self.streams)))
+        return dict(self._stats, buckets=dict(self._stats["buckets"]),
+                    phase_s=dict(self._phase_s), streams=self.n,
+                    active_streams=active)
 
     def window_device_ms(self):
         """(frames, device ms) of the latest 1024 windows dispatched, from

@@ -1,6 +1,7 @@
-"""The port stands alone: a fresh interpreter decodes a CELT and a SILK
-fixture through it, and a SILK fixture with lost packets (concealment and
-in-band FEC), with neither JAX nor the JAX package loaded, and no source
+"""The port stands alone: a fresh interpreter runs the entry's step and
+decodes a CELT and a SILK fixture through it, and a SILK fixture with
+lost packets (concealment and in-band FEC), the bench module imported,
+with neither JAX nor the JAX package loaded, and no source
 file of the port (nor chip_smoke.py, nor the port's tools) imports
 either. A native host library that fails to load raises at parse time."""
 import pathlib
@@ -15,6 +16,9 @@ _PROBE = """
 import sys
 from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
 from esp32_opus_player_tpu_torch.utils import state
+from esp32_opus_player_tpu_torch import bench, entry
+fn, args = entry.entry(device="cpu")
+assert fn(*args)[0].shape == (8, 1, 960)
 for src in sys.argv[1:]:
     pool = StreamPool([src], channels=1, device="cpu")
     for _ in range(3):
@@ -55,7 +59,8 @@ def test_port_sources_never_import_jax():
     assert len(files) > 25
     names = {p.name for p in files}
     assert {"torch_plc.py", "plc_kernel.py", "cng_kernel.py",
-            "batch_silk.py", "comb.py"} <= names
+            "batch_silk.py", "comb.py", "batch_celt.py", "row_synthesis.py",
+            "bench.py", "entry.py"} <= names
     for p in files:
         text = p.read_text()
         assert not jax.search(text), p

@@ -3,9 +3,11 @@
 Runs the pools of chip_smoke.py (2048 mono CELT streams in K = 64
 windows, 1024 stereo CELT streams one frame at a time, 2048 mono WB
 SILK streams in K = 64 windows, 48 mono NB/MB/WB SILK streams in K = 3
-windows, three buckets of 16 rows, and the 2048 WB streams again in RFC
+windows, three buckets of 16 rows, the 2048 WB streams again in RFC
 mode with concealment, a tenth of the rows lost on every step, with
-in-band FEC) on the card, each twice in one
+in-band FEC, and 2048 RFC-mode CELT streams over five fixtures of every
+frame size in a stereo pool in K = 16 windows) on the card, each twice
+in one
 process: first plain, for the wall time of run() and the device time of
 its windows (CUDA events), then under torch.profiler, for the card's
 busy time (device time of every kernel and copy), the kernel launches
@@ -14,7 +16,7 @@ so kernel builds and lazy tables stay out of both. Run from the
 repository root:
 
     python3 tools/profile_torch_pool.py [mono] [stereo] [silk] [silk_small]
-        [silk_loss] [--out DIR]
+        [silk_loss] [mixed] [--out DIR]
 
 Prints one JSON line per pool; with --out, also writes the profiler's
 per-kernel table for each pool to DIR/profile_<pool>.txt.
@@ -27,7 +29,8 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# pool: (fixtures, channels, streams, superstep_k[, lossy])
+# pool: (fixtures, channels, streams, superstep_k[, mode]); mode "loss":
+# RFC mode with concealment and a tenth lost; "rfc": RFC mode
 POOLS = {
     "mono": (("celt_fb_mono_20ms", "celt_fb_mono_drums_20ms"), 1, 2048, 64),
     "stereo": (("celt_fb_stereo_20ms", "celt_fb_stereo_drums_20ms"), 2,
@@ -36,19 +39,24 @@ POOLS = {
     "silk_small": (("silk_nb_mono_20ms", "silk_mb_mono_20ms",
                     "silk_wb_mono_20ms"), 1, 48, 3),
     "silk_loss": (("silk_wb_mono_20ms", "silk_wb_fec_mono_20ms"), 1, 2048,
-                  64, True),
+                  64, "loss"),
+    "mixed": (("celt_fb_mono_5ms", "celt_fb_stereo_2p5ms",
+               "celt_swb_stereo_10ms", "celt_nb_mono_20ms",
+               "celt_fb_mono_20ms"), 2, 2048, 16, "rfc"),
 }
 
 
-def run_pool(names, channels: int, n: int, K: int, lossy: bool = False):
+def run_pool(names, channels: int, n: int, K: int, mode=None):
     """One pool of n streams (names[i % len(names)]) through
-    StreamPool.run(); returns (pool, wall s of run). lossy: RFC mode
-    with concealment, stream i losing packet k where i % 10 == k % 10,
-    with in-band FEC."""
+    StreamPool.run(); returns (pool, wall s of run). mode "loss": RFC
+    mode with concealment, stream i losing packet k where i % 10 ==
+    k % 10, with in-band FEC; "rfc": RFC mode."""
     import torch
     from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
     paths = [ROOT / "tests" / "fixtures" / f"{m}.opus" for m in names]
-    kw = dict(compat_ref=False, rfc_plc=True) if lossy else {}
+    lossy = mode == "loss"
+    kw = dict(compat_ref=False, rfc_plc=True) if lossy else dict(
+        compat_ref=mode != "rfc")
     pool = StreamPool([paths[i % len(paths)] for i in range(n)],
                       channels=channels, superstep_k=K, device="cuda", **kw)
     torch.cuda.synchronize()
@@ -118,8 +126,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     card = card.strip().splitlines()[0]
-    for names, channels, _, _, *lossy in POOLS.values():  # builds, tables
-        run_pool(names, channels, 4, 3, *lossy)
+    for names, channels, _, _, *mode in POOLS.values():  # builds, tables
+        run_pool(names, channels, 4, 3, *mode)
     for name in args.pools:
         print(json.dumps({"card": card, **profile(name, args.out)}),
               flush=True)
