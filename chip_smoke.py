@@ -25,7 +25,12 @@ Phases (any failure exits non-zero; there is no CPU path):
    frames of 2.5, 5 and 10 ms (N 120, 240, 480, B 2048); K6 as its bare
    entry
    and as its fused one (the resampler's FIR as its epilogue, what the
-   SILK pools launch), beside the chain the fused entry replaced;
+   SILK pools launch), beside the chain the fused entry replaced. P1,
+   the CELT pitch conceal, is float32: it is held to its plain version
+   at the bounds PLC_TOL (T equal on every row) on seeded lanes of 2048
+   columns (CC 1 and 2, 205 and 7 rows, first and repeated conceals,
+   both pitch clamps), and bit-identical to itself for a row alone and
+   among 205; timed at 205 rows, CC 1 and 2;
 4. the CELT path through StreamPool.run(): a mono pool of 2048 streams in
    K = 64 windows and a stereo pool of 1024 streams per frame, every
    stream bit-equal to tests/golden; then a small CELT pool with packet
@@ -42,7 +47,16 @@ Phases (any failure exits non-zero; there is no CPU path):
    and K3. One call of K1's
    fused entry in each of the two large pools is kept (the first with a
    transient stream) and, after the pools, held and timed again on those
-   inputs (the fixtures' own flags);
+   inputs (the fixtures' own flags). Then the concealing CELT pools
+   (RFC mode, rfc_plc=True: P1 in each window frame, the noise branch
+   through the frames' normal steps), each held frame by frame to a CPU
+   pool of its 10 distinct (fixture, loss) streams: 2048 mono streams
+   in K = 64 windows losing a tenth of their packets, 1024 stereo
+   streams in K = 16 windows with 8-frame bursts besides, and the
+   mixed-LM pool above with a tenth lost (its 2.5, 5 and 10 ms lanes
+   conceal by the noise branch only, bit-equal; its 20 ms streams are
+   mono in a stereo pool); one P1 call of each is kept and held and
+   timed again after the pools;
 5. the mono SILK path: a 2048-stream WB pool in K = 64 windows (one
    device bucket of 2048 rows: kernels K7 and K6's fused entry) and a
    48-stream pool over the NB, MB and WB fixtures in K = 3 windows
@@ -57,7 +71,8 @@ Phases (any failure exits non-zero; there is no CPU path):
    them (K7, K6, K8 and K9 run here). Then compat
    loss (every 7th packet) on the card against the reference's
    tests/golden/silk_wb_mono_20ms.loss7.pcm;
-7. one JSON line of per-kernel results (all nine kernels; K1's row is
+7. one JSON line of per-kernel results (all nine kernels and P1,
+   which has no pl.pallas_call: it replaces jax_plc.celt_plc_core; K1's row is
    its fused entry, with its bare entry beside it; K4, the fused comb +
    deemphasis, is held to its plain version and timed beside K2 + K3
    but, as in the JAX package, no path calls it; K5 is held and timed
@@ -351,6 +366,156 @@ def check_k1_path(dev, card, sm_hz, captured, res):
         res["K1"][label] = k1_fused_timings(
             f"K1 celt_imdct_tdac_T (fused) on a {label} pool call's inputs, "
             f"B={len(tr)}", card, sm_hz, freq, dcc, tr, LM)
+
+
+# P1, the CELT pitch conceal, is float32: it is held to its plain version
+# at these bounds (T equal on every row; PCM in LSB; decode_mem and
+# preemph in Q12, 16 LSB; the LPC fit relative to a channel's largest
+# coefficient), and bit-identical to itself whatever the rows beside a
+# row. The pools that conceal are held to their CPU twins frame by frame:
+# bit-equal before a stream's first conceal and on every stream only the
+# noise branch touched; every other frame bit-equal, or within PLC_PCM at
+# SNR >= PLC_SNR dB, or within 1 LSB on a quiet frame: one whose twin's
+# RMS is below PLC_QUIET_RMS, the level under which one LSB of float32
+# rounding on every sample is already above -40 dB (20 log10 100 = 40).
+PLC_TOL = dict(pcm=16, dm=16 * 4096, pre=16 * 4096, lpc=0.05)
+PLC_PCM, PLC_SNR, PLC_QUIET_RMS = 16, 40.0, 100.0
+F32_FLOPS = 67e12                  # H100 SXM float32, no tensor cores
+
+
+def p1_work(first, T, CC: int) -> tuple:
+    """(bytes, float32 operations) of one P1 call on this run's rows:
+    each row's decode_mem read and written once, its PCM written, its
+    preemph, pitch and LPC read and written; operations from
+    csrc/celt_plc.cu's stages, the pitch search and Levinson-24 only on
+    first conceals, the whitening over the row's exc_len = min(2T, 1024)
+    samples."""
+    import numpy as np
+    first = np.asarray(first, dtype=bool)
+    exc_len = np.minimum(2 * np.asarray(T, dtype=np.int64), 1024)
+    R = len(first)
+    nbytes = R * (CC * (2 * 2168 * 4 + 960 * 2 + 2 * 4 + 2 * 24 * 4)
+                  + 2 * 4 + 8 + 1)
+    search = (2048 * (CC - 1) + 1024 * 4 + 5 * 1024 * 2 + 1024 * 10
+              + 156 * 332 * 2 + 155 * 10 + 11 * 664 * 2 + 310 * 10)
+    fit = 240 + 25 * 1024 * 2 + 24 * 24 * 2       # a channel, first only
+    rest = (exc_len * 48 + 1024 * 4 + 1080 * 3 + 1080 * 48 + 1080 * 4
+            + 60 * 3 + 960 * 2 + 2168 * 2)        # a channel, every row
+    ops = int(first.sum()) * (search + CC * fit) + CC * int(rest.sum())
+    return float(nbytes), float(ops)
+
+
+def p1_bound(nbytes: float, ops: float, sm_hz: float) -> dict:
+    """The largest of the bytes over the memory rate, the float32
+    operations over the float32 rate, and the operations a row must run
+    one after another (rows run side by side): the IIR waits on an FMA
+    and an add a sample (1080), the deemphasis on an add and a product
+    (960), ~4 cycles each at the SM clock. The chains set P1's bound;
+    bound_by names them "operations", the dependent ones."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    t_chain = (1080 + 960) * 8 / sm_hz * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops, t_chain), bound_by="bytes"
+                if t_bytes >= max(t_ops, t_chain) else "operations",
+                bytes=nbytes, f32_ops=ops, bytes_ms=t_bytes, ops_ms=t_ops,
+                chain_floor_ms=t_chain)
+
+
+def p1_check(what, st, pcmT, rows, first) -> dict:
+    """P1 against its plain version on one lane's inputs: T equal, the
+    rest within PLC_TOL, every other column untouched by both. Returns
+    the measured maxima and the rows' pitch out."""
+    import torch
+    from esp32_opus_player_tpu_torch.ops.celt.plc_kernel import (
+        celt_plc_T, celt_plc_T_ref)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_util import plc_run
+    (dm, pre, pitch, lpc), pcm = plc_run(celt_plc_T, st, pcmT, rows, first)
+    (rdm, rpre, rpitch, rlpc), rpcm = plc_run(celt_plc_T_ref, st, pcmT,
+                                              rows, first)
+    if not torch.equal(pitch, rpitch):
+        raise SystemExit(f"P1 {what}: T differs from its plain version")
+    err = dict(pcm=max_err(pcm, rpcm), dm=max_err(dm, rdm),
+               pre=max_err(pre, rpre),
+               lpc=float(((lpc - rlpc).abs().amax(2)
+                          / rlpc.abs().amax(2).clamp_min(1.0)).max()))
+    keep = torch.ones(dm.shape[2], dtype=torch.bool, device=dm.device)
+    keep[rows] = False
+    untouched = (torch.equal(dm[:, :, keep], st[0][:, :, keep])
+                 and torch.equal(lpc[keep], st[3][keep])
+                 and torch.equal(pcm[:, :, keep], pcmT[:, :, keep]))
+    bad = {k: v for k, v in err.items() if v > PLC_TOL[k]}
+    print(f"P1 {what}: T equal on all {len(rows)} rows; max |kernel - "
+          f"plain| {err} (bounds {PLC_TOL})")
+    if bad or not untouched:
+        raise SystemExit(f"P1 {what}: beyond its bounds {bad} or wrote "
+                         f"outside its rows ({not untouched})")
+    return dict(err=err, T=pitch[rows])
+
+
+def p1_timings(what, card, sm_hz, st, pcmT, rows, first, T) -> dict:
+    """P1 and its plain version on one lane's inputs, both in CUDA graphs
+    (the state is updated in place on every replay, which changes no
+    shape), beside the bound from these rows."""
+    from esp32_opus_player_tpu_torch.ops.celt.plc_kernel import (
+        celt_plc_T, celt_plc_T_ref)
+    work = [t.clone() for t in st]
+    pcm = pcmT.clone()
+    t = dict(**timings(lambda: celt_plc_T(*work, pcm, rows, first),
+                       lambda: celt_plc_T_ref(*work, pcm, rows, first), 20),
+             **p1_bound(*p1_work(first.cpu().numpy(), T.cpu().numpy(),
+                                 st[0].shape[0]), sm_hz),
+             rows=len(rows), first=int(first.sum()))
+    print(f"[{card}] P1 celt_plc, {what} ({t['rows']} rows, {t['first']} "
+          f"first conceals): device time (CUDA graph) kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; eager stream "
+          f"time kernel {t['eager_ms']:.4f} ms, plain "
+          f"{t['plain_eager_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms by "
+          f"{t['bound_by']}: the largest of {t['bytes'] / 1e6:.2f} MB "
+          f"({t['bytes_ms']:.5f} ms), {t['f32_ops'] / 1e6:.1f} M float32 "
+          f"ops ({t['ops_ms']:.5f} ms) and a row's dependent chain "
+          f"({t['chain_floor_ms']:.5f} ms)")
+    return t
+
+
+def check_plc_kernel(dev, card, sm_hz) -> dict:
+    """P1 against its plain version on seeded lanes of 2048 columns
+    (tests/torch_port_util.py::plc_lane: rows 0 and 1 repeat a conceal at
+    pitch 60 and 800): CC 1 and 2, 205 rows (the pools' tenth) and 7,
+    first conceals and repeated ones, both pitch clamps; bit-identical to itself for five rows alone
+    and among 205; timed at 205 rows, CC 1 and CC 2."""
+    import torch
+    from esp32_opus_player_tpu_torch.ops.celt.plc_kernel import celt_plc_T
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_util import plc_lane, plc_run
+    res = dict(err=dict.fromkeys(PLC_TOL, 0))
+    for CC in (1, 2):
+        for R in (205, 7):
+            lane = plc_lane(dev, CC, R, 10 * CC + R)
+            c = p1_check(f"seeded, CC {CC}, {R} rows", *lane)
+            if c["T"][:2].tolist() != [100, 720]:
+                raise SystemExit(f"P1 missed a pitch clamp: {c['T'][:2]}")
+            res["err"] = {k: max(v, c["err"][k])
+                          for k, v in res["err"].items()}
+        st, pcmT, rows, first = lane = plc_lane(dev, CC, 205, 77 + CC)
+        (dm, pre, pitch, lpc), pcm = plc_run(celt_plc_T, *lane)
+        for j in (0, 2, 3, 100, 204):
+            (dm1, pre1, pitch1, lpc1), pcm1 = plc_run(
+                celt_plc_T, st, pcmT, rows[j:j + 1].clone(),
+                first[j:j + 1].clone())
+            r = int(rows[j])
+            if not (torch.equal(dm1[:, :, r], dm[:, :, r])
+                    and torch.equal(pcm1[:, :, r], pcm[:, :, r])
+                    and torch.equal(pre1[r], pre[r])
+                    and torch.equal(lpc1[r], lpc[r])
+                    and int(pitch1[r]) == int(pitch[r])):
+                raise SystemExit(f"P1 CC {CC}: row {r} alone differs from "
+                                 f"the same row among 205")
+        print(f"P1 CC {CC}: five rows alone bit-identical to themselves "
+              f"among 205")
+        res[f"seeded_cc{CC}"] = p1_timings(
+            f"seeded lane CC {CC}, B={B}", card, sm_hz, *lane, pitch[rows])
+    return res
 
 
 def check_celt_kernels(dev, card, sm_hz):
@@ -919,11 +1084,12 @@ def fixture(name):
 
 
 def run_pool(dev, card, label, names, n, K, channels=1, twins=None,
-             loss=None, fec=False, min_len=90000, **kw):
+             loss=None, fec=False, min_len=90000, match=None, **kw):
     """One pool of n streams (names[i % len(names)]) through
     StreamPool.run(), every stream held against tests/golden, or, with
-    twins (a list of PCM arrays), stream i against twins[i % len(twins)];
-    each stream at least min_len samples. Returns the PCM."""
+    twins (a list of PCM arrays), stream i against twins[i % len(twins)]:
+    bit-equal, or as match(i, out, twin) says; each stream at least
+    min_len samples. Returns the PCM."""
     import numpy as np
     import torch
     from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
@@ -942,7 +1108,8 @@ def run_pool(dev, card, label, names, n, K, channels=1, twins=None,
     for i, out in enumerate(outs):
         if twins is not None:
             ref = twins[i % len(twins)]
-            if len(out) < min_len or not np.array_equal(out, ref):
+            ok = match(i, out, ref) if match else np.array_equal(out, ref)
+            if len(out) < min_len or not ok:
                 raise SystemExit(f"{label} pool stream {i} differs from "
                                  f"its CPU twin")
             continue
@@ -958,9 +1125,11 @@ def run_pool(dev, card, label, names, n, K, channels=1, twins=None,
     dev_ms = sum(ms for _, ms in win)
     steps = max(len(p.jobs) for p in pool.streams)
     fps = frames / (t2 - t1)
-    what = "tests/golden" if twins is None else "their CPU twins"
-    print(f"[{card}] {label} pool B={n} K={K}: all {n} streams bit-equal "
-          f"to {what}; {frames} frames; setup {t1 - t0:.3f} s; run "
+    what = ("bit-equal to tests/golden" if twins is None else
+            "bit-equal to their CPU twins" if match is None else
+            "within the P1 bounds of their CPU twins")
+    print(f"[{card}] {label} pool B={n} K={K}: all {n} streams {what}; "
+          f"{frames} frames; setup {t1 - t0:.3f} s; run "
           f"{t2 - t1:.3f} s wall = {fps:.1f} frames/s = "
           f"{audio_s / (t2 - t1):.1f} realtime streams; device {dev_ms:.3f} "
           f"ms in "
@@ -970,6 +1139,69 @@ def run_pool(dev, card, label, names, n, K, channels=1, twins=None,
     return outs
 
 
+def plc_match(names, loss, noise_only=()):
+    """The frame-by-frame hold of a concealing pool's stream i against
+    its CPU twin: streams of `noise_only` fixtures (every conceal the
+    noise branch: integer work) bit-equal; on the others every frame
+    before the stream's first conceal bit-equal, and each later frame
+    bit-equal, or within PLC_PCM at SNR >= PLC_SNR, or within 1 LSB with
+    the twin's RMS below PLC_QUIET_RMS. Returns (match, stats: the frames
+    compared, those equal, the largest error and the lowest SNR of the
+    frames that differ, and of the quiet frames below PLC_SNR their
+    count, largest twin RMS, most samples that differ and lowest
+    SNR)."""
+    import numpy as np
+    from esp32_opus_player_tpu_torch.host import opusfile
+    bounds = {}
+    for m in set(names):
+        jobs = opusfile.parse_stream(fixture(m).read_bytes()).jobs
+        n = [max(0, j.duration - j.discard_front - j.trim_end) for j in jobs]
+        bounds[m] = np.concatenate([[0], np.cumsum(n)])
+    stats = dict(frames=0, equal=0, max_err=0, min_snr=float("inf"),
+                 quiet=0, quiet_max_rms=0.0, quiet_max_diff=0,
+                 quiet_min_snr=float("inf"))
+
+    def match(i, out, ref):
+        name = names[i % len(names)]
+        if out.shape != ref.shape:
+            return False
+        b = bounds[name]
+        if name in noise_only:
+            stats["frames"] += len(b) - 1
+            stats["equal"] += len(b) - 1
+            return np.array_equal(out, ref)
+        first = min((k for k in range(len(b) - 1) if loss(i, k)),
+                    default=len(b))
+        for k in range(len(b) - 1):
+            fa, fb = out[b[k]:b[k + 1]], ref[b[k]:b[k + 1]]
+            stats["frames"] += 1
+            if np.array_equal(fa, fb):
+                stats["equal"] += 1
+                continue
+            if k < first:
+                return False
+            e = fa.astype(np.float64) - fb
+            err = float(np.abs(e).max())
+            snr = 10 * np.log10((np.sum(fb.astype(np.float64) ** 2) + 1)
+                                / (np.sum(e ** 2) + 1))
+            rms = float(np.sqrt(np.mean(fb.astype(np.float64) ** 2)))
+            stats["max_err"] = max(stats["max_err"], err)
+            stats["min_snr"] = min(stats["min_snr"], float(snr))
+            if snr < PLC_SNR:
+                if err > 1 or rms >= PLC_QUIET_RMS:
+                    return False
+                stats["quiet"] += 1
+                stats["quiet_max_rms"] = max(stats["quiet_max_rms"], rms)
+                stats["quiet_max_diff"] = max(stats["quiet_max_diff"],
+                                              int(np.count_nonzero(e)))
+                stats["quiet_min_snr"] = min(stats["quiet_min_snr"],
+                                             float(snr))
+            if err > PLC_PCM:
+                return False
+        return True
+    return match, stats
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -977,10 +1209,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from esp32_opus_player_tpu_torch.models import celt_pool_T
     from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
     from esp32_opus_player_tpu_torch.ops import _build
     from esp32_opus_player_tpu_torch.ops.celt import (comb, deemph, fft,
                                                       synthesis_T)
+    from esp32_opus_player_tpu_torch.ops.celt import plc_kernel as celt_plc
     from esp32_opus_player_tpu_torch.ops.silk import (cng_kernel,
                                                       core_kernel,
                                                       lpc_synth, plc_kernel,
@@ -1006,6 +1240,7 @@ def main() -> int:
     res = check_celt_kernels(dev, card, sm_mhz * 1e6)
     res.update(check_silk_kernels(dev, card, sm_mhz * 1e6))
     res.update(check_loss_kernels(dev, card, sm_mhz * 1e6))
+    res["P1"] = check_plc_kernel(dev, card, sm_mhz * 1e6)
 
     # Every path below counts: each wrapper's count is set to 0 here, just
     # before the first pool, and read once after the last; `counted`
@@ -1022,7 +1257,8 @@ def main() -> int:
                 "K6 fused": [up2_hq.up2_fir],
                 "K7": [core_kernel.silk_core],
                 "K8": [plc_kernel.silk_plc_conceal],
-                "K9": [cng_kernel.cng_add]}
+                "K9": [cng_kernel.cng_add],
+                "P1": [celt_plc.celt_plc_T]}
 
     def launch_counts():
         return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
@@ -1096,6 +1332,78 @@ def main() -> int:
         dev, card, "CELT mixed LM (RFC, 2.5/5/10/20 ms)", mixed, B, 16,
         channels=2, twins=mtwins, min_len=20000, compat_ref=False))
     entry_t = check_entry(card, counted)
+
+    # the concealing CELT pools (RFC mode, rfc_plc): P1 after each window
+    # frame's decode on its pitch-branch rows, the noise branch through
+    # the frames' normal steps. 2048 mono streams losing a tenth of their
+    # packets (isolated: the pitch branch), 1024 stereo ones with 8-frame
+    # bursts besides (the noise branch after five conceals), and the
+    # mixed-LM pool with a tenth lost (its 2.5, 5 and 10 ms lanes conceal
+    # by noise only; its 20 ms streams are mono in a stereo pool: P1 at
+    # CC 2, and noise rows on a step of their own at C = CC). Each held to
+    # a CPU pool of its 10 distinct (fixture, loss) streams; the first P1
+    # call of each with enough rows kept and, after the pools, held and
+    # timed again on those inputs (the 12th call with enough rows, so the
+    # history is the fixtures' and not the silence before their start).
+    tenth = lambda i, k: i % 10 == k % 10
+    burst = lambda i, k: tenth(i, k) or (i % 10 == 3 and 30 <= k < 38)
+    rfc = dict(compat_ref=False, rfc_plc=True)
+    p1_captured = {}
+
+    def capturing_p1(label, run, least):
+        seen = []
+
+        def spy(dmT, pre, pitch, lpc, pcmT, rows, first):
+            if rows.shape[0] >= least:
+                seen.append(None)
+            if label not in p1_captured and len(seen) == 12:
+                p1_captured[label] = (
+                    [t.clone() for t in (dmT, pre, pitch, lpc)],
+                    pcmT.clone(), rows.clone(), first.clone())
+            return celt_plc.celt_plc_T(dmT, pre, pitch, lpc, pcmT, rows,
+                                         first)
+        celt_pool_T.celt_plc_T = spy
+        try:
+            return run()
+        finally:
+            celt_pool_T.celt_plc_T = celt_plc.celt_plc_T
+
+    lossy = [("mono", "celt_fb_mono", ["celt_fb_mono_20ms",
+                                       "celt_fb_mono_drums_20ms"], B, 64, 1,
+              tenth, (), 150),
+             ("stereo", "celt_fb_stereo", ["celt_fb_stereo_20ms",
+                                           "celt_fb_stereo_drums_20ms"],
+              B // 2, 16, 2, burst, (), 80),
+             ("mixed-LM", "celt_mixed_lm_rfc", mixed, B, 16, 2, tenth,
+              tuple(mixed[:3]), 50)]
+    plc_labels = []
+    for key, pool_name, names, n, K, ch, loss, noise_only, least in lossy:
+        t0 = time.perf_counter()
+        ptwins = StreamPool([fixture(names[i % len(names)])
+                             for i in range(10)], channels=ch,
+                            superstep_k=K, device="cpu", **rfc).run(loss=loss)
+        print(f"lossy {key} CELT twins (10 streams on the CPU): "
+              f"{time.perf_counter() - t0:.1f} s")
+        match, mstats = plc_match(names, loss, noise_only)
+        label = f"the lossy {key} RFC CELT pool (rfc_plc)"
+        plc_labels.append(label)
+        counted(label, lambda: capturing_p1(key, lambda: run_pool(
+            dev, card, f"{pool_name} concealing ({key}, {n} streams)",
+            names, n, K, channels=ch, twins=ptwins, loss=loss, match=match,
+            min_len=20000, **rfc), least))
+        print(f"[{card}] {label}: against the CPU twins {mstats['frames']} "
+              f"frames, {mstats['equal']} bit-equal; the rest max |card - "
+              f"CPU| {mstats['max_err']:.0f} LSB (bound {PLC_PCM}), min "
+              f"SNR {mstats['min_snr']} dB (bound {PLC_SNR}); within 1 LSB "
+              f"below {PLC_SNR} dB: {mstats['quiet']} quiet frames, twin "
+              f"RMS at most {mstats['quiet_max_rms']:.2f} (bound "
+              f"{PLC_QUIET_RMS}), at most {mstats['quiet_max_diff']} of a "
+              f"frame's samples differing, min SNR "
+              f"{mstats['quiet_min_snr']} dB")
+        for k in ("min_snr", "quiet_min_snr"):
+            if mstats[k] == float("inf"):
+                mstats[k] = None                # no such frame
+        res["P1"][f"pool_{key}"] = mstats
 
     # the mono SILK path
     counted("the SILK WB pool (2048-row bucket)", lambda: run_pool(
@@ -1172,6 +1480,18 @@ def main() -> int:
         raise SystemExit(f"no CELT pool call with a transient stream was "
                          f"captured: {sorted(captured)}")
     check_k1_path(dev, card, sm_mhz * 1e6, captured, res)
+    for label in plc_labels:
+        if not paths[label].get("P1"):
+            raise SystemExit(f"{label} did not launch P1: {paths[label]}")
+    if set(p1_captured) != {"mono", "stereo", "mixed-LM"}:
+        raise SystemExit(f"P1 calls kept: {sorted(p1_captured)}")
+    for key, lane in p1_captured.items():
+        c = p1_check(f"on a {key} pool call's inputs", *lane)
+        res["P1"]["err"] = {k: max(v, c["err"][k])
+                            for k, v in res["P1"]["err"].items()}
+        res["P1"][key] = p1_timings(f"a {key} pool call's inputs, B="
+                                    f"{lane[0][0].shape[2]}", card,
+                                    sm_mhz * 1e6, *lane, c["T"])
 
     pkg, jx = "esp32_opus_player_tpu_torch/csrc/", "esp32_opus_player_tpu/"
     meta = {
@@ -1229,6 +1549,23 @@ def main() -> int:
     kernels[5].update(fused_launches=launches["K6 fused"], **{
         k: v for k, v in res["K6"].items()
         if k.startswith(("fused_", "ms_b16", "bound_ms_b16"))})
+    # P1 (no pl.pallas_call: jax_plc.celt_plc_core is jnp under a jit):
+    # its row is its time on the mono pool's inputs; float32, so its
+    # max_abs_err is the PCM's (LSB) and `max_err` has every bound's
+    p1 = res["P1"]
+    kernels.append(dict(
+        name="celt_plc", route="cuda", source=pkg + "celt_plc.cu",
+        replaces=jx + "ops/celt/jax_plc.py:221", launches=launches["P1"],
+        max_abs_err=p1["err"]["pcm"],
+        **{x: p1["mono"][x] for x in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by")},
+        library_ms=None, max_err=p1["err"], tolerance=PLC_TOL,
+        rows=p1["mono"]["rows"],
+        **{f"ms_{k}": p1[k]["ms"] for k in ("stereo", "mixed-LM",
+                                            "seeded_cc1", "seeded_cc2")},
+        **{f"bound_ms_{k}": p1[k]["bound_ms"] for k in (
+            "stereo", "mixed-LM", "seeded_cc1", "seeded_cc2")},
+        pools={k: p1[f"pool_{k}"] for k in ("mono", "stereo", "mixed-LM")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -67,6 +67,9 @@ POOLS = {
                                "plc"),
     "silk_wb_10pct_fec": (("silk_wb_fec_mono_20ms",), 1, 2048, 64,
                           dict(compat_ref=False, rfc_plc=True), "fec"),
+    "celt_fb_10pct_loss_plc": (("celt_fb_mono_20ms",), 1, 2048, 64,
+                               dict(compat_ref=False, rfc_plc=True),
+                               "plc"),
     "celt_mixed_lm_rfc": (("celt_fb_mono_5ms", "celt_fb_stereo_2p5ms",
                            "celt_swb_stereo_10ms", "celt_nb_mono_20ms",
                            "celt_fb_mono_20ms"), 2, 2048, 16,

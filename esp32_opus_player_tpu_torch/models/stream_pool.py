@@ -34,9 +34,15 @@ itself, _Window.host(): the wait for the window's frame steps and its
 copy to the host.
 
 Lost packets (step(lost=, fec=), run(loss=, fec=)): a lost CELT packet
-gives silence and leaves the stream's state untouched, a masked row. A
-lost SILK packet, as in the JAX pool: in compat mode it decodes the
-normal frame path over an empty bitstream; in RFC mode with
+gives silence and leaves the stream's state untouched, a masked row,
+unless the pool conceals (RFC mode with rfc_plc=True): then, as in the
+JAX pool, libopus' celt_decode_lost runs in the window frame of the
+step: its pitch branch (a stream's first five conceals of a 20 ms frame
+since the second good frame after a loss run) on the device with kernel
+P1 after the frame's decode, its noise branch (the rest) as a host-built
+row of decayed band energies and LCG noise through the frame's normal
+decode. A lost SILK packet, as in the JAX pool: in compat mode it
+decodes the normal frame path over an empty bitstream; in RFC mode with
 rfc_plc=True it is concealed on the device (silk_PLC conceal, kernel K8,
 then comfort noise, K9), as a row of the same window frame as the
 step's decoded rows, and the first good frame after a loss run is
@@ -56,10 +62,13 @@ import numpy as np
 import torch
 
 from ..host import opusfile
-from ..host.native import PlcTrackerState, StateArray
+from ..host.native import CeltHostState, PlcTrackerState, StateArray
 from ..host.packet import (Mode, get_bandwidth, get_nb_channels,
                            get_nb_frames, get_samples_per_frame)
-from ..ops.celt.torch_synthesis import (DECODE_BUFFER_SIZE, NB_EBANDS,
+from ..ops.celt.math import celt_lcg_rand
+from ..ops.celt.pvq import renormalise_vector
+from ..ops.celt.torch_plc import LPC_ORDER
+from ..ops.celt.torch_synthesis import (DECODE_BUFFER_SIZE, EB, NB_EBANDS,
                                         OVERLAP, SHORT_MDCT_SIZE)
 from . import host_groups as hg
 from . import silk_pool
@@ -122,13 +131,13 @@ class _Lane:
     def stage(self, sel, info=None):
         """Write this step's staging frame (rows `sel` take part, the
         rest are inactive; `info` is the lane's own per-step data) and
-        dispatch the window once it holds K frames. Returns (window,
+        dispatch the window once it holds K frames. `fill` says whether
+        the frame has inactive rows (it is masked). Returns (window,
         frame index) of the frame."""
         if not self.masked and self.stg_free is not None:
             self.stg_free.synchronize()
         win, k = self.win, len(self.masked)
-        self.fill(self.stg_np[k], sel, info)
-        self.masked.append(sel.size < self.n)
+        self.masked.append(self.fill(self.stg_np[k], sel, info))
         if len(self.masked) == self.pool._ss_k:
             self.dispatch()
         return win, k
@@ -165,10 +174,119 @@ class _Lane:
         self.masked = []
 
 
+class _Pinned:
+    """Rows collected over a window's frames in growing host buffers,
+    pinned on a card so their upload is asynchronous: `cols` maps a name
+    to (dtype, row width, None for a scalar). `off` holds the row count at
+    each frame's start."""
+
+    def __init__(self, pin: bool, **cols):
+        self.pin, self.cols = pin, cols
+        self.off = [0]
+        self.t = {}
+        self._alloc(64)
+
+    def _alloc(self, cap: int) -> None:
+        used = self.off[-1]
+        t = {k: torch.empty((cap,) + (() if w is None else (w,)), dtype=d,
+                            pin_memory=self.pin)
+             for k, (d, w) in self.cols.items()}
+        for k in t:
+            if used:
+                t[k][:used] = self.t[k][:used]
+        self.t = t
+        self.np = {k: v.numpy() for k, v in t.items()}
+
+    def add(self, **arrays) -> None:
+        """Append one frame's rows (every column, the same row count; the
+        frame may have none)."""
+        used = self.off[-1]
+        n = len(next(iter(arrays.values())))
+        if used + n > len(self.np[next(iter(self.np))]):
+            self._alloc(2 * (used + n))
+        for k, a in arrays.items():
+            self.np[k][used:used + n] = a
+        self.off.append(used + n)
+
+    def upload(self, dev):
+        """(frame offsets, {name: device tensor}) of the window so far; the
+        next window starts empty."""
+        off, used = self.off, self.off[-1]
+        self.off = [0]
+        return off, {k: v[:used].to(dev, non_blocking=True)
+                     for k, v in self.t.items()}
+
+
+# the noise branch's comb filter: gains 0, so it passes the signal through
+_NO_COMB = (15, 15, 0, 0, 0, 0) * 2
+_LOSS_COUNT_WORD = CeltHostState.loss_count.offset // 4
+
+
+def _lcg_tables(n: int):
+    """(A, B) uint64 with lcg^d(s) = (A[d] s + B[d]) mod 2^32, d < n + 1:
+    the LCG's d-th draw from any seed in one step."""
+    ab = np.zeros((n + 1, 2), dtype=np.uint64)  # lcg^d(0), lcg^d(1)
+    ab[0, 1] = 1
+    for d in range(1, n + 1):
+        ab[d] = celt_lcg_rand(ab[d - 1])
+    return (ab[:, 1] - ab[:, 0]) & 0xFFFFFFFF, ab[:, 0]
+
+
+_LCG = _lcg_tables(2 * 960)
+
+
+def celt_noise_rows(sts, cnts, ends, CC: int, N: int, LM: int):
+    """libopus celt_decode_lost's noise branch for R streams of one lane
+    (the JAX pool's _celt_noise_si, start band 0): decay each host
+    state's oldBandE toward backgroundLogE (1.5 dB on a first conceal,
+    then 0.5 dB), fill bands 0..end of each of the CC channels with LCG
+    noise from the state's rng, in order, renormalised band by band, and
+    advance the rng. sts: the CeltHostStates; cnts: their conceals since
+    the last good frame; ends: their end bands. The frame then runs
+    through the normal synthesis with C = CC and no comb filter
+    (_NO_COMB). Returns (X (R, CC * N) int16, bandE (R, 42) int16)."""
+    R = len(sts)
+    X = np.zeros((R, CC, N), dtype=np.int64)
+    bandE = np.zeros((R, 2 * NB_EBANDS), dtype=np.int16)
+    if R == 0:
+        return X.reshape(0, CC * N).astype(np.int16), bandE
+    A, B = _LCG
+    for r, (st, cnt, end) in enumerate(zip(sts, cnts, ends)):
+        old = np.ctypeslib.as_array(st.oldBandE)
+        bg = np.ctypeslib.as_array(st.backgroundLogE)
+        for c in range(CC):
+            band = slice(c * NB_EBANDS, c * NB_EBANDS + end)
+            old[band] = np.maximum(bg[band], old[band].astype(np.int32)
+                                   - (1536 if cnt == 0 else 512))
+        M = int(EB[end]) << LM               # draws a channel
+        seeds = (A[1:CC * M + 1] * np.uint64(st.rng)
+                 + B[1:CC * M + 1]) & np.uint64(0xFFFFFFFF)
+        if seeds.size:
+            st.rng = int(seeds[-1])
+        X[r, :, :M] = (seeds.astype(np.uint32).view(np.int32)
+                       >> 20).reshape(CC, M)
+        bandE[r] = old
+    # renormalise band by band, the bands of one width together (a band
+    # past a row's end band is zero and stays so)
+    for w in np.unique(np.diff(EB)):
+        idx = np.concatenate([np.arange(int(EB[b]) << LM, int(EB[b + 1]) << LM)
+                              for b in range(NB_EBANDS)
+                              if EB[b + 1] - EB[b] == w])
+        v = X[:, :, idx].reshape(R, CC, -1, int(w) << LM)
+        renormalise_vector(v, int(w) << LM, 32767)
+        X[:, :, idx] = v.reshape(R, CC, -1)
+    return X.reshape(R, CC * N).astype(np.int16), bandE
+
+
 class _CeltLane(_Lane):
     """The CELT streams of one frame size N = 120 << LM and one coded
     channel count C, transposed state (models/celt_pool_T.py); `ends` is
-    each stream's end band."""
+    each stream's end band. In a pool that conceals (rfc_plc) the state
+    also holds the carried pitch and LPC fit of the pitch branch, and the
+    host keeps each stream's conceal count, its skip flag (the first good
+    frame after a loss run sets it, the second clears it) and whether the
+    previous step concealed it by pitch; a window collects its pitch
+    rows, and its noise rows of another channel count, compact."""
 
     kind = "celt"
 
@@ -189,23 +307,101 @@ class _CeltLane(_Lane):
                                    device=pool.device),
         }
         self.bucket = ("celtT", LM, self.C, CC, self.n)
+        self.plc = pool.rfc_plc
+        if self.plc:
+            self.state["plc_pitch"] = torch.zeros(
+                self.n, dtype=torch.int32, device=pool.device)
+            self.state["plc_lpc"] = torch.zeros(
+                (self.n, CC, LPC_ORDER), dtype=torch.float32,
+                device=pool.device)
+            self.loss_cnt = np.zeros(self.n, dtype=np.int32)
+            self.skip = np.zeros(self.n, dtype=bool)
+            self.prev_pitch = np.zeros(self.n, dtype=bool)
+            # the native state's loss_count: its next good decode reads it
+            # (the background energy's step after a long loss run)
+            self.native_cnt = g.states.buf.view(np.int32)[:, _LOSS_COUNT_WORD]
+            self.pitch_rows = _Pinned(pool._cuda, rows=(torch.int64, None),
+                                      first=(torch.bool, None))
+            self.noise_rows = None if self.C == CC else _Pinned(
+                pool._cuda, rows=(torch.int64, None), stg=(
+                    torch.int16, _CELT_HDR + 2 * NB_EBANDS + CC * self.N))
 
-    def fill(self, stg, sel, info=None) -> None:
+    def host_step(self, ok, lost):
+        """The conceal bookkeeping of one step after the batched symbol
+        decode of the good rows `ok` (the JAX pool's, stream_pool.py:
+        2187-2198 and 2438-2455): every good row sets its skip flag if it
+        ends a loss run and clears it otherwise; each row in `lost` takes
+        the noise branch after 5 conceals, while its skip flag is set, or
+        in a frame shorter than 20 ms, and the pitch branch otherwise.
+        Returns (sel, info): every decoded or concealed row, and for
+        `fill` the decoded rows, the noise rows with their staging
+        contents and the pitch rows with their first-conceal flags."""
+        good, gone = np.nonzero(ok)[0], np.nonzero(lost)[0]
+        self.skip[good] = self.loss_cnt[good] > 0
+        self.loss_cnt[good] = 0
+        noisy = (self.loss_cnt[gone] >= 5) | self.skip[gone] | (self.N != 960)
+        pitch, noise = gone[~noisy], gone[noisy]
+        g = self.group
+        X, bandE = celt_noise_rows(
+            [g.states[r] for r in noise.tolist()], self.loss_cnt[noise],
+            np.minimum(g.ends[noise], NB_EBANDS), self.pool.channels, self.N,
+            self.LM)
+        first = ~self.prev_pitch[pitch]
+        self.loss_cnt[gone] += 1
+        self.native_cnt[gone] = self.loss_cnt[gone]
+        self.prev_pitch[:] = False
+        self.prev_pitch[pitch] = True
+        return np.nonzero(ok | lost)[0], (good, (noise, X, bandE), pitch,
+                                          first)
+
+    def fill(self, stg, sel, info=None) -> bool:
         g = self.group
         stg[:] = 0
+        rows = sel if info is None else info[0]
         p = g.params
-        stg[sel, 2] = p[sel, 1]                         # transient
-        stg[sel, 3] = g.start[sel]
-        stg[sel, 4] = p[sel, 15]                        # end
-        stg[sel, 5:17] = p[sel, 3:15]                   # comb1, comb2
-        stg[sel, 17] = 1                                # active
-        stg[sel, _CELT_HDR:_CELT_HDR + 2 * NB_EBANDS] = g.bandE[sel]
-        stg[sel, _CELT_HDR + 2 * NB_EBANDS:] = g.X[sel]
+        stg[rows, 2] = p[rows, 1]                       # transient
+        stg[rows, 3] = g.start[rows]
+        stg[rows, 4] = p[rows, 15]                      # end
+        stg[rows, 5:17] = p[rows, 3:15]                 # comb1, comb2
+        stg[rows, 17] = 1                               # active
+        stg[rows, _CELT_HDR:_CELT_HDR + 2 * NB_EBANDS] = g.bandE[rows]
+        stg[rows, _CELT_HDR + 2 * NB_EBANDS:] = g.X[rows]
+        if info is None:
+            return rows.size < self.n
+        _, (noise, X, bandE), pitch, first = info
+        if self.noise_rows is None:
+            nstg, active = stg, rows.size + noise.size
+            at = noise
+        else:
+            nstg, active = np.zeros((noise.size, self.noise_rows.np[
+                "stg"].shape[1]), dtype=np.int16), rows.size
+            at = np.arange(noise.size)
+        nstg[at, 4] = np.minimum(g.ends[noise], NB_EBANDS)
+        nstg[at, 5:17] = _NO_COMB
+        nstg[at, 17] = 1
+        nstg[at, _CELT_HDR:_CELT_HDR + 2 * NB_EBANDS] = bandE
+        nstg[at, _CELT_HDR + 2 * NB_EBANDS:] = X
+        self.pitch_rows.add(rows=pitch, first=first)
+        if self.noise_rows is not None:
+            self.noise_rows.add(rows=noise, stg=nstg)
+        return active < self.n
+
+    def upload_aux(self):
+        if not self.plc:
+            return None
+        dev = self.pool.device
+        offs, t = self.pitch_rows.upload(dev)
+        if self.noise_rows is None:
+            return (offs, t["rows"], t["first"], [0] * len(offs), None, None)
+        noffs, nt = self.noise_rows.upload(dev)
+        return (offs, t["rows"], t["first"], noffs, nt["rows"], nt["stg"])
 
     def run(self, stgK, masked, aux=None):
+        st = self.state
         return celt_pool_superstep_T(
-            self.state["decode_mem"], self.state["preemph"], stgK,
-            LM=self.LM, C=self.C, CC=self.pool.channels, masked=masked)
+            st["decode_mem"], st["preemph"], stgK, LM=self.LM, C=self.C,
+            CC=self.pool.channels, masked=masked, pitch=st.get("plc_pitch"),
+            lpc=st.get("plc_lpc"), conceal=aux)
 
     @staticmethod
     def frames(frame, sel):
@@ -218,8 +414,8 @@ class _SilkLane(_Lane):
     (models/silk_pool.py). In a pool that conceals (rfc_plc) every row
     has a PLC tracker, the staging rows carry the conceal columns, and
     the frame-sized conceal inputs of the window's lost rows collect
-    compact in `cx` (one row of rand then cng_exc per lost row, `cx_pos`
-    its bucket row, `cx_off` the row count at each frame's start)."""
+    compact in `conceal` (`cx`: rand then cng_exc per lost row, `pos`:
+    its bucket row)."""
 
     NB = 4
     kind = "silk"
@@ -243,22 +439,8 @@ class _SilkLane(_Lane):
                              for v in self.trk_states.views]
             self.last_lost = self.trk_states.buf.view(np.int32)[
                 :, LAST_LOST_WORD]
-            self.cx_off = [0]
-            self._cx_alloc(64)
-
-    def _cx_alloc(self, cap: int) -> None:
-        """(Re)allocate the compact conceal buffers for cap lost rows,
-        keeping the rows already collected."""
-        pin = self.pool._cuda
-        cx = torch.empty((cap, 2 * self.frame), dtype=torch.int32,
-                         pin_memory=pin)
-        pos = torch.empty(cap, dtype=torch.int64, pin_memory=pin)
-        used = self.cx_off[-1]
-        if used:
-            cx[:used] = self.cx[:used]
-            pos[:used] = self.cx_pos[:used]
-        self.cx, self.cx_pos = cx, pos
-        self.cx_np, self.cx_pos_np = cx.numpy(), pos.numpy()
+            self.conceal = _Pinned(pool._cuda, pos=(torch.int64, None),
+                                   cx=(torch.int32, 2 * self.frame))
 
     def host_step(self, pos, ok, lost, fec):
         """The host work of one step after the batched symbol decode of
@@ -301,7 +483,7 @@ class _SilkLane(_Lane):
             self.last_lost[rows] = 0
         return np.nonzero(decoded | lost)[0], (rows, preps, glue), n_fec
 
-    def fill(self, stg, sel, info=None) -> None:
+    def fill(self, stg, sel, info=None) -> bool:
         b, F = self.group.buf, self.frame
         rows, preps, glue = info if info is not None else (sel, {}, None)
         p = F + 32 + 5 * self.NB
@@ -314,29 +496,22 @@ class _SilkLane(_Lane):
         stg[rows, p + 16:p + 28] = b.flags[rows]  # voiced, rewhiten, match
         stg[sel, -1] = 1                          # active
         if not self.plc:
-            return
+            return sel.size < self.n
         q = p + 7 * self.NB
         stg[rows, q] = glue
         self.glue.append(bool(glue.any()))
-        used = self.cx_off[-1]
-        if used + len(preps) > len(self.cx_np):
-            self._cx_alloc(2 * (used + len(preps)))
         for r, prep in preps.items():
             stg[r, q:q + silk_pool.PLC_COLS] = silk_pool.conceal_cols(prep)
-            self.cx_np[used, :F] = prep["rand"]
-            self.cx_np[used, F:] = prep["cng_exc"]
-            self.cx_pos_np[used] = r
-            used += 1
-        self.cx_off.append(used)
+        self.conceal.add(pos=list(preps), cx=np.reshape(
+            [np.concatenate([v["rand"], v["cng_exc"]]) for v in
+             preps.values()], (len(preps), 2 * F)))
+        return sel.size < self.n
 
     def upload_aux(self):
         if not self.plc:
             return None
-        offs, used = self.cx_off, self.cx_off[-1]
-        self.cx_off = [0]
-        dev = self.pool.device
-        return (offs, self.cx_pos[:used].to(dev, non_blocking=True),
-                self.cx[:used].to(dev, non_blocking=True))
+        offs, t = self.conceal.upload(self.pool.device)
+        return offs, t["pos"], t["cx"]
 
     def run(self, stgK, masked, aux=None):
         glue, self.glue = self.glue, []
@@ -389,8 +564,6 @@ class StreamPool:
         kinds = [self._check_source(i, s) for i, s in enumerate(self.streams)]
         if len({k[0] for k in kinds}) > 1:
             raise _todo("a pool that mixes CELT and SILK streams", "12")
-        if rfc_plc and kinds[0][0] == "celt":
-            raise _todo("CELT packet-loss concealment (rfc_plc)", "7")
         self._ss_k = int(superstep_k)
         self.positions = np.zeros(self.n, dtype=np.int64)
         self.pcm_out = [[] for _ in range(self.n)]
@@ -504,9 +677,9 @@ class StreamPool:
         """Decode one frame of every stream with a packet left. lost:
         stream indices whose next packet was lost in transit: it is
         consumed but not decoded. A lost CELT packet gives silence and
-        leaves the stream's state untouched; a lost SILK packet is
-        decoded over an empty bitstream (compat mode) or concealed
-        (rfc_plc). fec: the subset of lost whose frame the NEXT packet's
+        leaves the stream's state untouched, or is concealed (rfc_plc); a
+        lost SILK packet is decoded over an empty bitstream (compat mode)
+        or concealed (rfc_plc). fec: the subset of lost whose frame the NEXT packet's
         in-band SILK LBRR copy should reconstruct when it has one (that
         packet stays unread: the next step decodes it). Returns False
         once every stream is exhausted."""
@@ -529,6 +702,9 @@ class StreamPool:
             if isinstance(lane, _SilkLane) and (lane.plc or gone.any()):
                 sel, info, n_fec = lane.host_step(pos, ok, gone, fec[idxs])
                 st["frames_fec"] += n_fec
+                gone[sel] = False
+            elif isinstance(lane, _CeltLane) and lane.plc:
+                sel, info = lane.host_step(ok, gone)
                 gone[sel] = False
             rows = np.nonzero(live)[0]
             st["frames"] += rows.size
@@ -561,7 +737,8 @@ class StreamPool:
 
     def _route(self, parts) -> None:
         """Trim and append one step's PCM per stream (a lost CELT frame
-        as N samples of silence, N the lane's frame size)."""
+        that is not concealed as N samples of silence, N the lane's frame
+        size)."""
         for p in parts:
             lane, idxs = p["lane"], p["lane"].idxs
             meta = {int(r): (int(d), int(t)) for r, d, t in

@@ -20,6 +20,10 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# flags of one source beside the common ones: P1 is float32 and keeps
+# every product and sum rounded on its own, as its plain version's torch
+# operations are (csrc/celt_plc.cu says why)
+SOURCE_FLAGS = {"celt_plc.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _lib = None
@@ -51,6 +55,7 @@ def library_path() -> pathlib.Path:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return BUILD_DIR / h.hexdigest()[:16] / "libotpu_kernels.so"
 
 
@@ -68,7 +73,8 @@ def build() -> pathlib.Path:
     for src in sorted(CSRC.glob("*.cu")):
         obj = out.parent / f"{src.stem}.{tag}.o"
         cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
-               "-fPIC", "-Xptxas", "-v", "-o", str(obj), str(src)]
+               "-fPIC", "-Xptxas", "-v", *SOURCE_FLAGS.get(src.name, []),
+               "-o", str(obj), str(src)]
         jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True)))
@@ -127,6 +133,8 @@ def _bind(so):
     so.silk_cng.argtypes = [p, p, p, p, i, i, i, p]
     so.celt_comb_deemph.restype = i
     so.celt_comb_deemph.argtypes = [p, i, i, i, p, p, p, p, p, p, p]
+    so.celt_plc.restype = i
+    so.celt_plc.argtypes = [p, ll, i, p, p, p, p, p, p, i, p]
     so.otpu_cuda_error_string.restype = ctypes.c_char_p
     so.otpu_cuda_error_string.argtypes = [i]
     return so

@@ -2,7 +2,9 @@
 
 CELT: what a T-mode pool carries across frames, decode_mem in the
 transposed layout, (CC, 2048+120, B) int32, and the deemphasis memory,
-(B, CC) int32 — the layout of the JAX T-mode StreamPool.state.
+(B, CC) int32 — the layout of the JAX T-mode StreamPool.state; in a pool
+that conceals (rfc_plc) also the pitch conceal's carried fit, plc_pitch
+(B,) int32 and plc_lpc (B, CC, 24) float32.
 
 Mono SILK: one bucket per internal rate fs, the JAX pool's
 `silk_buckets[fs]` dict, one row per stream: outBuf (B, 40 fs), sLPC
@@ -29,14 +31,16 @@ def _i32(a) -> np.ndarray:
     return a
 
 
-def from_jax_state(state, preemph=None, *, device, rows=None) -> dict:
+def from_jax_state(state, preemph=None, *, device, rows=None,
+                   plc_pitch=None, plc_lpc=None) -> dict:
     """The JAX pool's state as the port's state dict on `device`.
 
     CELT: from_jax_state(decode_mem, preemph, device=...) with arrays in
-    the JAX T layout. SILK: from_jax_state(bucket, device=..., rows=...)
-    with a JAX `silk_buckets[fs]` dict; rows picks the bucket rows of the
-    port's bucket (its streams of that rate, in index order), all rows
-    when None."""
+    the JAX T layout, and from a pool that conceals plc_pitch= and
+    plc_lpc= as well (both or neither). SILK: from_jax_state(bucket,
+    device=..., rows=...) with a JAX `silk_buckets[fs]` dict; rows picks
+    the bucket rows of the port's bucket (its streams of that rate, in
+    index order), all rows when None."""
     if isinstance(state, dict):
         if preemph is not None:
             raise ValueError("a SILK bucket takes no preemph")
@@ -46,8 +50,19 @@ def from_jax_state(state, preemph=None, *, device, rows=None) -> dict:
     if L != DECODE_BUFFER_SIZE + OVERLAP or pre.shape != (B, CC):
         raise ValueError(f"state shapes {dm.shape}, {pre.shape} are not "
                          f"(CC, {DECODE_BUFFER_SIZE + OVERLAP}, B), (B, CC)")
-    return {"decode_mem": torch.tensor(dm, device=device),
-            "preemph": torch.tensor(pre, device=device)}
+    out = {"decode_mem": torch.tensor(dm, device=device),
+           "preemph": torch.tensor(pre, device=device)}
+    if (plc_pitch is None) != (plc_lpc is None):
+        raise ValueError("plc_pitch and plc_lpc go together")
+    if plc_pitch is not None:
+        pitch, lpc = _i32(plc_pitch), np.asarray(plc_lpc)
+        if pitch.shape != (B,) or lpc.shape != (B, CC, 24) \
+                or lpc.dtype != np.float32:
+            raise ValueError(f"plc state {pitch.shape}, {lpc.shape} "
+                             f"{lpc.dtype} is not (B,), (B, CC, 24) float32")
+        out["plc_pitch"] = torch.tensor(pitch, device=device)
+        out["plc_lpc"] = torch.tensor(lpc, device=device)
+    return out
 
 
 def _silk_from_jax(bucket: dict, device, rows) -> dict:

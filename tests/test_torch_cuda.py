@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain torch twins on an
 NVIDIA card, bit for bit, at the main path's width (B = 2048 streams;
 K1's fused entry, K2, K3, K6, K7, K8 and K9 also at widths that leave
-their tiles ragged),
-and the port's pool on the card against tests/golden. Needs a card;
+their tiles ragged), P1 (the float32 CELT pitch conceal) at its float
+bounds and bit-identical to itself whatever the rows beside a row,
+and the port's pool on the card against tests/golden or the CPU. Needs a card;
 without one every test skips. Run on the card from the repository root:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import DBS, OV, comb_params, t32
+from torch_port_util import DBS, OV, comb_params, plc_lane, plc_run, t32
 
 pytestmark = pytest.mark.cuda
 
@@ -566,3 +567,106 @@ def test_cng_is_one_launch(dev):
         "args = t._cng_args(dev, t.B, 320, 'tenth')\n"
         "call = lambda: cng_add(*args, frame=320, order=16)")
     assert len(names) == 1 and "cng_kernel" in names[0], names
+
+
+# P1, the CELT pitch conceal: float32, so held to its plain version at the
+# bounds of tests/test_torch_celt_plc.py (T equal; PCM, decode_mem and
+# preemph within 16 LSB; LPC within 5 % of a channel's largest
+# coefficient), and bit-identical to itself whatever the rows beside a row
+PLC_PCM, PLC_Q12, PLC_LPC = 16, 16 * 4096, 0.05
+
+
+@pytest.mark.parametrize("R", [205, 7])
+@pytest.mark.parametrize("CC", [1, 2])
+def test_plc_kernel_matches_plain(dev, CC, R):
+    from esp32_opus_player_tpu_torch.ops.celt.plc_kernel import (
+        celt_plc_T, celt_plc_T_ref)
+    st, pcmT, rows, first = plc_lane(dev, CC, R, 10 * CC + R)
+    n = celt_plc_T.launches
+    (dm, pre, pitch, lpc), pcm = plc_run(celt_plc_T, st, pcmT, rows, first)
+    assert celt_plc_T.launches == n + 1
+    (rdm, rpre, rpitch, rlpc), rpcm = plc_run(celt_plc_T_ref, st, pcmT,
+                                               rows, first)
+    assert torch.equal(pitch, rpitch)
+    # the clamps: rows 0 and 1 repeat a conceal with pitch 60 and 800
+    assert pitch[rows[:2]].tolist() == [100, 720]
+    err = lambda a, b: int((a.long() - b.long()).abs().max())
+    assert err(pcm, rpcm) <= PLC_PCM and err(dm, rdm) <= PLC_Q12
+    assert err(pre, rpre) <= PLC_Q12
+    rel = ((lpc - rlpc).abs().amax(2)
+           / rlpc.abs().amax(2).clamp_min(1.0)).max()
+    assert float(rel) <= PLC_LPC
+    keep = torch.ones(B, dtype=torch.bool, device=dev)
+    keep[rows] = False
+    assert torch.equal(dm[:, :, keep], st[0][:, :, keep])
+    assert torch.equal(lpc[keep], st[3][keep]) and not pcm[:, :, keep].any()
+
+
+@pytest.mark.parametrize("CC", [1, 2])
+def test_plc_kernel_row_independent(dev, CC):
+    """A row concealed alone gives the bits it gives among 205 rows."""
+    from esp32_opus_player_tpu_torch.ops.celt.plc_kernel import celt_plc_T
+    st, pcmT, rows, first = plc_lane(dev, CC, 205, 77 + CC)
+    (dm, pre, pitch, lpc), pcm = plc_run(celt_plc_T, st, pcmT, rows, first)
+    for j in (0, 2, 3, 100, 204):
+        (dm1, pre1, pitch1, lpc1), pcm1 = plc_run(
+            celt_plc_T, st, pcmT, rows[j:j + 1].clone(),
+            first[j:j + 1].clone())
+        r = int(rows[j])
+        assert torch.equal(dm1[:, :, r], dm[:, :, r])
+        assert torch.equal(pcm1[:, :, r], pcm[:, :, r])
+        assert torch.equal(pre1[r], pre[r]) and pitch1[r] == pitch[r]
+        assert torch.equal(lpc1[r], lpc[r])
+
+
+def test_plc_is_one_launch(dev):
+    names = _device_kernels(
+        "st, pcm, rows, first = t.plc_lane(dev, 1, 205, 5)\n"
+        "from esp32_opus_player_tpu_torch.ops.celt.plc_kernel import "
+        "celt_plc_T\n"
+        "call = lambda: celt_plc_T(*st, pcm, rows, first)")
+    assert len(names) == 1 and "plc_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_lossy_celt_pool_card_matches_cpu(dev, channels):
+    """The concealing CELT pool (a 10th of the rows lost on every step,
+    and 8-frame bursts that reach the noise branch) on the card, P1
+    launched, against the same pool on the CPU: bit-equal before a
+    stream's first conceal, then each frame bit-equal, or within 16 LSB
+    at SNR >= 40 dB, or within 1 LSB on a quiet frame: one whose CPU
+    twin's RMS is below 100, the level under which one LSB of float32
+    rounding on every sample is already above -40 dB."""
+    from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
+    from esp32_opus_player_tpu_torch.ops.celt.plc_kernel import celt_plc_T
+    kind = "mono" if channels == 1 else "stereo"
+    src = [ROOT / "fixtures" / f"celt_fb_{kind}{d}_20ms.opus"
+           for d in ("", "_drums")] * 10
+    loss = lambda i, k: i % 10 == k % 10 or (i % 7 == 3 and 30 <= k < 38)
+    n = celt_plc_T.launches
+    kw = dict(channels=channels, superstep_k=16, compat_ref=False,
+              rfc_plc=True)
+    card = StreamPool(src, device=dev, **kw).run(loss=loss)
+    assert celt_plc_T.launches > n
+    cpu = StreamPool(src, device="cpu", **kw).run(loss=loss)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        assert a.shape == b.shape, i
+        first = min(k for k in range(100) if loss(i, k))
+        for k in range(len(a) // 960):
+            fa, fb = a[960 * k:960 * (k + 1)], b[960 * k:960 * (k + 1)]
+            if np.array_equal(fa, fb):
+                continue
+            assert k >= first - 1, (i, k)
+            e = fa.astype(np.float64) - fb
+            snr = 10 * np.log10((np.sum(fb.astype(np.float64) ** 2) + 1)
+                                / (np.sum(e ** 2) + 1))
+            err = np.abs(e).max()
+            rms = np.sqrt(np.mean(fb.astype(np.float64) ** 2))
+            assert err <= PLC_PCM, (i, k, err, snr)
+            assert snr >= 40.0 or (err <= 1 and rms < 100.0), (
+                i, k, err, snr, rms, np.count_nonzero(e))
+            if snr < 40.0:
+                print(f"quiet frame: stream {i} frame {k}: max |card - "
+                      f"CPU| {err:.0f} LSB, {np.count_nonzero(e)} of 960 "
+                      f"samples differ, SNR {snr:.2f} dB, twin RMS "
+                      f"{rms:.2f}")

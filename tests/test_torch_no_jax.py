@@ -1,6 +1,7 @@
 """The port stands alone: a fresh interpreter runs the entry's step and
-decodes a CELT and a SILK fixture through it, and a SILK fixture with
-lost packets (concealment and in-band FEC), the bench module imported,
+decodes a CELT and a SILK fixture through it, a SILK fixture with lost
+packets (concealment and in-band FEC) and a CELT one with lost packets
+(both conceal branches), the bench module imported,
 with neither JAX nor the JAX package loaded, and no source
 file of the port (nor chip_smoke.py, nor the port's tools) imports
 either. A native host library that fails to load raises at parse time."""
@@ -33,6 +34,13 @@ while lossy.positions[0] < 7:
                fec={0} if k == 5 else None)
 out = lossy.collected()[0]
 assert len(out) > 6 * 960 - 400 and out[3 * 960:4 * 960].any(), out.shape
+celt = StreamPool([sys.argv[1]], compat_ref=False, rfc_plc=True,
+                  superstep_k=2, device="cpu")
+while celt.positions[0] < 12:
+    k = int(celt.positions[0])
+    celt.step(lost={0} if k in (3, 6, 7, 8, 9, 10, 11) else None)
+out = celt.collected()[0]
+assert len(out) == 12 * 960 - 312 and out[-960:].any(), out.shape
 print(sorted(m for m in sys.modules if m.startswith("jax")
              or m.split(".")[0] == "esp32_opus_player_tpu"))
 """
@@ -60,7 +68,9 @@ def test_port_sources_never_import_jax():
     names = {p.name for p in files}
     assert {"torch_plc.py", "plc_kernel.py", "cng_kernel.py",
             "batch_silk.py", "comb.py", "batch_celt.py", "row_synthesis.py",
-            "bench.py", "entry.py"} <= names
+            "bench.py", "entry.py", "fixed_point.py", "math.py",
+            "pvq.py"} <= names
+    assert (PKG / "ops" / "celt" / "torch_plc.py") in files
     for p in files:
         text = p.read_text()
         assert not jax.search(text), p

@@ -191,9 +191,14 @@ def test_rfc_plc_argument_checks():
     src = [fixture_path("silk_wb_mono_20ms")]
     with pytest.raises(ValueError):
         StreamPool(src, compat_ref=True, rfc_plc=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        StreamPool([fixture_path("celt_fb_mono_20ms")], compat_ref=False,
-                   rfc_plc=True, device="cpu")
+    # a CELT pool conceals: the lost packet's frame is not silence
+    celt = StreamPool([fixture_path("celt_fb_mono_20ms")], compat_ref=False,
+                      rfc_plc=True, device="cpu")
+    for k in range(4):
+        celt.step(lost={0} if k == 3 else None)
+    out = celt.collected()[0]
+    assert len(out) == 4 * 960 - 312 and out[-960:].any()
+    assert celt.stats()["frames_lost"] == 1
     pool = StreamPool(src, compat_ref=False, device="cpu")
     pool.step()
     with pytest.raises(NotImplementedError, match="rfc_plc"):

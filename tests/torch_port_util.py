@@ -173,3 +173,60 @@ def imdct_tdac_inputs(rng, B, LM, flags):
               third=np.arange(B) % 3 == 2,
               random=rng.integers(0, 2, B).astype(bool))[flags]
     return freq, dcc, tr
+
+
+def plc_rows(rng, R, CC):
+    """Inputs of the CELT pitch conceal for R rows: decode_mem (R, CC,
+    2168) int32 Q12 holding five harmonics of a seeded period (90-740
+    samples) with noise, preemph (R, CC) int32, the carried pitch (R,)
+    int32 (rows 0 and 1: 60 and 800, both clamps of [100, 720]), the
+    carried LPC (R, CC, 24) float32 and the first-conceal flags (R,)
+    bool (rows 0-1 False, 2-3 True, the rest seeded)."""
+    n = np.arange(DBS + OV)
+    P = rng.uniform(90, 740, (R, 1, 1, 1))
+    h = np.arange(1, 6)[None, None, :, None]
+    amp = rng.uniform(200, 3000, (R, CC, 5, 1)) / h
+    ph = rng.uniform(0, 6, (R, CC, 5, 1))
+    sig = (amp * np.sin(2 * np.pi * h * n / P + ph)).sum(2)
+    sig += rng.normal(0, 100, sig.shape)
+    pitch = rng.integers(100, 721, R)
+    pitch[:2] = (60, 800)
+    first = rng.random(R) < 0.5
+    first[:4] = (False, False, True, True)
+    return (np.round(sig * 4096).astype(np.int32),
+            rng.integers(-2 ** 22, 2 ** 22, (R, CC)).astype(np.int32),
+            pitch.astype(np.int32),
+            rng.normal(0, 0.3, (R, CC, 24)).astype(np.float32), first)
+
+
+def plc_lane(device, CC, R, seed, cap=2048):
+    """A lane of cap columns for P1 whose R lost rows (every cap // R-th
+    column, in a seeded order) hold plc_rows' inputs and whose other
+    columns hold random state: ([dmT, pre, pitch, lpc], pcmT zeros, rows,
+    first), all on `device`."""
+    rng = np.random.default_rng(seed)
+    dm, pre, pitch, lpc, first = plc_rows(rng, R, CC)
+    cols = rng.permutation(np.arange(R) * (cap // R))
+    st = [rng.integers(-2 ** 28, 2 ** 28, (CC, DBS + OV, cap)).astype(
+              np.int32),
+          rng.integers(-2 ** 22, 2 ** 22, (cap, CC)).astype(np.int32),
+          rng.integers(100, 721, cap).astype(np.int32),
+          rng.normal(0, 0.3, (cap, CC, 24)).astype(np.float32)]
+    st[0][:, :, cols] = dm.transpose(1, 2, 0)
+    for t, v in zip(st[1:], (pre, pitch, lpc)):
+        t[cols] = v
+    return ([torch.as_tensor(a, device=device) for a in st],
+            torch.zeros((CC, 960, cap), dtype=torch.int16, device=device),
+            torch.as_tensor(cols, device=device),
+            torch.as_tensor(first, device=device))
+
+
+def plc_run(fn, st, pcmT, rows, first):
+    """fn (P1 or its plain version) on copies of a lane's state and PCM;
+    returns (state list, pcmT), the device's work finished."""
+    st = [t.clone() for t in st]
+    pcmT = pcmT.clone()
+    fn(*st, pcmT, rows, first)
+    if pcmT.is_cuda:
+        torch.cuda.synchronize()
+    return st, pcmT
