@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero; there is no CPU path):
 1. the card: name, count, `nvidia-smi` name, power limit and SM clock;
-2. build the hand-written kernels from csrc/ (prints ptxas -v);
+2. build the hand-written kernels from csrc/ (prints ptxas -v: each
+   kernel's registers, shared memory and spills);
 3. each kernel against its plain torch version on the card at the main
    paths' shapes, bit for bit (tolerance 0: int32 fixed point), and both
    timed: as device time (one call captured in a CUDA graph, replayed)
@@ -22,9 +23,11 @@ Phases (any failure exits non-zero; there is no CPU path):
    ragged (K3 at every downsample factor), K2, K7 and K8 at the lag
    edges, K6-K9 also on misaligned column slices; K3 is timed at both
    paths' shapes (CC 1, B 2048 and CC 2, B 1024); K2 and K3 also at the
-   frames of 2.5, 5 and 10 ms (N 120, 240, 480, B 2048); K6 as its bare
-   entry
-   and as its fused one (the resampler's FIR as its epilogue, what the
+   frames of 2.5, 5 and 10 ms (N 120, 240, 480, B 2048); K4 (the comb
+   with the deemphasis as its epilogue) at N 960, 480, 240 and 120, B
+   2048, each beside K2 then K3 on the same inputs, and at ragged
+   widths, both lag edges and a block of no-op streams; K6 as its bare
+   entry and as its fused one (the resampler's FIR as its epilogue, what the
    SILK pools launch), beside the chain the fused entry replaced. P1,
    the CELT pitch conceal, is float32: it is held to its plain version
    at the bounds PLC_TOL (T equal on every row) on seeded lanes of 2048
@@ -92,6 +95,11 @@ B = 2048
 DBS, OV = 2048, 120
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 INT32_LANES = 132 * 64             # SMs x INT32 lanes per SM
+# The deemphasis (K3, K4's epilogue) truncates at every step, so no exact
+# scan exists: a stream's samples run one after another, each through two
+# dependent integer instructions (the sum, and the product as a high
+# word: csrc/celt_deemph.cu), at least ~4 cycles each at the SM clock
+DEEMPH_CHAIN_CYCLES = 8
 
 
 def nvidia_smi(query: str) -> str:
@@ -159,6 +167,15 @@ def bound(nbytes: float, ops: float, sm_hz: float) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes"
                 if t_bytes >= t_ops else "operations", bytes=nbytes,
                 int32_ops=ops)
+
+
+def deemph_chain(t: dict, N: int, sm_hz: float) -> float:
+    """The deemphasis chain's floor over N samples (ms), folded into t's
+    bound (from `bound`) where it is the larger."""
+    chain = N * DEEMPH_CHAIN_CYCLES / sm_hz * 1e3
+    if chain > t["bound_ms"]:
+        t.update(bound_ms=chain, bound_by="operations")
+    return chain
 
 
 def report(card, what, t) -> None:
@@ -405,20 +422,17 @@ def p1_work(first, T, CC: int) -> tuple:
     return float(nbytes), float(ops)
 
 
-def p1_bound(nbytes: float, ops: float, sm_hz: float) -> dict:
-    """The largest of the bytes over the memory rate, the float32
-    operations over the float32 rate, and the operations a row must run
-    one after another (rows run side by side): the IIR waits on an FMA
-    and an add a sample (1080), the deemphasis on an add and a product
-    (960), ~4 cycles each at the SM clock. The chains set P1's bound;
-    bound_by names them "operations", the dependent ones."""
+def p1_bound(nbytes: float, ops: float) -> dict:
+    """The larger of the bytes over the memory rate and the float32
+    operations over the float32 rate. No chain of a row is charged: the
+    IIR and the deemphasis run as blocks of a warp (csrc/celt_plc.cu), and
+    the chains left (the Syy walk, Levinson-24, the top-2 walks) have no
+    floor that can be stated without the kernel's own schedule."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
-    t_chain = (1080 + 960) * 8 / sm_hz * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops, t_chain), bound_by="bytes"
-                if t_bytes >= max(t_ops, t_chain) else "operations",
-                bytes=nbytes, f32_ops=ops, bytes_ms=t_bytes, ops_ms=t_ops,
-                chain_floor_ms=t_chain)
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes"
+                if t_bytes >= t_ops else "operations",
+                bytes=nbytes, f32_ops=ops, bytes_ms=t_bytes, ops_ms=t_ops)
 
 
 def p1_check(what, st, pcmT, rows, first) -> dict:
@@ -453,7 +467,7 @@ def p1_check(what, st, pcmT, rows, first) -> dict:
     return dict(err=err, T=pitch[rows])
 
 
-def p1_timings(what, card, sm_hz, st, pcmT, rows, first, T) -> dict:
+def p1_timings(what, card, st, pcmT, rows, first, T) -> dict:
     """P1 and its plain version on one lane's inputs, both in CUDA graphs
     (the state is updated in place on every replay, which changes no
     shape), beside the bound from these rows."""
@@ -464,21 +478,20 @@ def p1_timings(what, card, sm_hz, st, pcmT, rows, first, T) -> dict:
     t = dict(**timings(lambda: celt_plc_T(*work, pcm, rows, first),
                        lambda: celt_plc_T_ref(*work, pcm, rows, first), 20),
              **p1_bound(*p1_work(first.cpu().numpy(), T.cpu().numpy(),
-                                 st[0].shape[0]), sm_hz),
+                                 st[0].shape[0])),
              rows=len(rows), first=int(first.sum()))
     print(f"[{card}] P1 celt_plc, {what} ({t['rows']} rows, {t['first']} "
           f"first conceals): device time (CUDA graph) kernel "
           f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; eager stream "
           f"time kernel {t['eager_ms']:.4f} ms, plain "
           f"{t['plain_eager_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms by "
-          f"{t['bound_by']}: the largest of {t['bytes'] / 1e6:.2f} MB "
-          f"({t['bytes_ms']:.5f} ms), {t['f32_ops'] / 1e6:.1f} M float32 "
-          f"ops ({t['ops_ms']:.5f} ms) and a row's dependent chain "
-          f"({t['chain_floor_ms']:.5f} ms)")
+          f"{t['bound_by']}: the larger of {t['bytes'] / 1e6:.2f} MB "
+          f"({t['bytes_ms']:.5f} ms) and {t['f32_ops'] / 1e6:.1f} M "
+          f"float32 ops ({t['ops_ms']:.5f} ms)")
     return t
 
 
-def check_plc_kernel(dev, card, sm_hz) -> dict:
+def check_plc_kernel(dev, card) -> dict:
     """P1 against its plain version on seeded lanes of 2048 columns
     (tests/torch_port_util.py::plc_lane: rows 0 and 1 repeat a conceal at
     pitch 60 and 800): CC 1 and 2, 205 rows (the pools' tenth) and 7,
@@ -514,7 +527,7 @@ def check_plc_kernel(dev, card, sm_hz) -> dict:
         print(f"P1 CC {CC}: five rows alone bit-identical to themselves "
               f"among 205")
         res[f"seeded_cc{CC}"] = p1_timings(
-            f"seeded lane CC {CC}, B={B}", card, sm_hz, *lane, pitch[rows])
+            f"seeded lane CC {CC}, B={B}", card, *lane, pitch[rows])
     return res
 
 
@@ -664,7 +677,9 @@ def check_celt_kernels(dev, card, sm_hz):
                            lambda: deemphasis_T_ref(syn, mem), 20),
                  **bound(CC * nb * (960 * 4 + 960 * 2 + 8),
                          CC * nb * 960 * 8, sm_hz))
-        report(card, f"K3 deemphasis_T, CC={CC}, B={nb}", t)
+        chain = deemph_chain(t, 960, sm_hz)
+        report(card, f"K3 deemphasis_T, CC={CC}, B={nb} (the chain's floor "
+               f"{chain:.5f} ms)", t)
         if CC == 1:
             res["K3"] = t
     res["K3"].update(ms_cc2=t["ms"], bound_ms_cc2=t["bound_ms"], by_N={})
@@ -674,40 +689,71 @@ def check_celt_kernels(dev, card, sm_hz):
         t = dict(**timings(lambda: deemphasis_T(syn, mem),
                            lambda: deemphasis_T_ref(syn, mem), 20),
                  **bound(B * (N * 4 + N * 2 + 8), B * N * 8, sm_hz))
-        report(card, f"K3 deemphasis_T, CC=1, N={N}, B={B}", t)
+        chain = deemph_chain(t, N, sm_hz)
+        report(card, f"K3 deemphasis_T, CC=1, N={N}, B={B} (the chain's "
+               f"floor {chain:.5f} ms)", t)
         res["K3"]["by_N"][N] = {k: t[k] for k in ("ms", "plain_ms",
                                                   "bound_ms", "bound_by")}
     res["K3"]["max_abs_err"] = err
     print(f"[{card}] K3 also at B in (1, 7, 9, 15, 17, 2047) (CC 1) and "
           f"1023 (CC 2), downsample 1/2/3/4/6: bit-equal")
 
-    # K4: K2 then K3 in one launch, on K2's inputs and one channel's
-    # memory; timed beside the two launches it would replace
-    mem = t32(rng.integers(-(1 << 20), 1 << 20, B))
-    want = comb_deemph_step_T_ref(buf.clone(), DBS - 960, 960, c1, c2, mem)
-    got = comb_deemph_step_T(buf.clone(), DBS - 960, 960, c1, c2, mem)
-    if not same(got, want):
-        raise SystemExit(f"K4 differs from its plain version: "
-                         f"{max_err(got[0], want[0])}")
+    # K4: K2 then K3 in one launch (K2's tile with the deemphasis as its
+    # epilogue), on K2's inputs and one channel's memory, at every frame
+    # size; also at ragged widths, with every lag at either edge and with
+    # a block of no-op streams; timed beside the two launches it would
+    # replace on the same inputs
+    def k4_case(buf, c1, c2, N):
+        mem = t32(rng.integers(-(1 << 20), 1 << 20, buf.shape[1]))
+        want = comb_deemph_step_T_ref(buf.clone(), DBS - N, N, c1, c2, mem)
+        got = comb_deemph_step_T(buf.clone(), DBS - N, N, c1, c2, mem)
+        if not same(got, want):
+            raise SystemExit(f"K4 (B {buf.shape[1]}, N {N}) differs from its "
+                             f"plain version: {max_err(got[0], want[0])}")
+        return mem, max(max_err(g, w) for g, w in zip(got, want))
 
-    def k2_then_k3():
-        comb_filter_step_T(work, DBS - 960, 960, c1, c2)
-        return deemphasis_T(work[None, DBS - 960:DBS], mem[:, None])
+    err = 0
+    for Bn, lag, N in [(1, None, 960), (9, None, 120), (2047, None, 480),
+                       (B, 15, 960), (B, 1024, 240)]:
+        e1, e2 = params(Bn, lag), params(Bn, lag)
+        for e in (e1, e2):        # streams 16..31: a K4 block of no-ops
+            e[2][16:32] = 0
+            e[3][16:32] = 0
+        bufe = t32(rng.integers(-(1 << 26), 1 << 26, (DBS + OV, Bn)))
+        err = max(err, k4_case(bufe, e1, e2, N)[1])
+    res["K4"] = dict(by_N={})
+    for N in (960, 480, 240, 120):
+        bufN, d1, d2, _ = (buf, c1, c2, 0) if N == 960 else k2_case(B, N=N)
+        mem, e = k4_case(bufN, d1, d2, N)
+        err = max(err, e)
+        workN = bufN.clone()
 
-    # reads and operations: K2's, then K3's 8 per sample; the frame's
-    # rows are read once (not again by the epilogue); writes: K2's rows,
-    # the int16 PCM and the memory
-    k2_bytes, k2_ops = k2_work(960, c1, c2)
-    res["K4"] = dict(
-        max_abs_err=max(max_err(g, w) for g, w in zip(got, want)),
-        **timings(lambda: comb_deemph_step_T(work, DBS - 960, 960, c1, c2,
-                                             mem),
-                  lambda: comb_deemph_step_T_ref(work, DBS - 960, 960, c1,
-                                                 c2, mem), 20),
-        **bound(k2_bytes + B * (960 * 2 + 8), k2_ops + B * 960 * 8, sm_hz),
-        k2_then_k3_ms=device_ms(k2_then_k3, 20))
-    report(card, f"K4 comb_deemph_step_T, N=960, B={B} (K2 then K3 in two "
-           f"launches: {res['K4']['k2_then_k3_ms']:.4f} ms)", res["K4"])
+        def k2_then_k3():
+            comb_filter_step_T(workN, DBS - N, N, d1, d2)
+            return deemphasis_T(workN[None, DBS - N:DBS], mem[:, None])
+
+        # reads and operations: K2's, then K3's 8 per sample; the frame's
+        # rows are read once (not again by the epilogue); writes: K2's
+        # rows, the int16 PCM and the memory; or the deemphasis chain
+        k2_bytes, k2_ops = k2_work(N, d1, d2)
+        t = dict(**timings(
+            lambda: comb_deemph_step_T(workN, DBS - N, N, d1, d2, mem),
+            lambda: comb_deemph_step_T_ref(workN, DBS - N, N, d1, d2, mem),
+            20),
+            **bound(k2_bytes + B * (N * 2 + 8), k2_ops + B * N * 8, sm_hz),
+            k2_then_k3_ms=device_ms(k2_then_k3, 20))
+        chain = deemph_chain(t, N, sm_hz)
+        report(card, f"K4 comb_deemph_step_T, N={N}, B={B} (K2 then K3 in "
+               f"two launches: {t['k2_then_k3_ms']:.4f} ms; the deemphasis "
+               f"chain's floor {chain:.5f} ms)", t)
+        if N == 960:
+            res["K4"].update(t)
+        else:
+            res["K4"]["by_N"][N] = {k: t[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "k2_then_k3_ms")}
+    res["K4"]["max_abs_err"] = err
+    print(f"[{card}] K4 also at B 1, 9, 2047 (ragged), every lag 15 or "
+          f"1024, and a block of no-op streams (16..31): bit-equal")
     return res
 
 
@@ -1231,7 +1277,7 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.3f} s "
           f"({_build.library_path()})")
     for line in _build.ptxas_log.splitlines():
-        if "Compiling entry" in line or "Used" in line:
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  " + line.strip())
 
     # the floor of every device time below: a graph that holds nothing
@@ -1240,7 +1286,7 @@ def main() -> int:
     res = check_celt_kernels(dev, card, sm_mhz * 1e6)
     res.update(check_silk_kernels(dev, card, sm_mhz * 1e6))
     res.update(check_loss_kernels(dev, card, sm_mhz * 1e6))
-    res["P1"] = check_plc_kernel(dev, card, sm_mhz * 1e6)
+    res["P1"] = check_plc_kernel(dev, card)
 
     # Every path below counts: each wrapper's count is set to 0 here, just
     # before the first pool, and read once after the last; `counted`
@@ -1491,7 +1537,7 @@ def main() -> int:
                             for k, v in res["P1"]["err"].items()}
         res["P1"][key] = p1_timings(f"a {key} pool call's inputs, B="
                                     f"{lane[0][0].shape[2]}", card,
-                                    sm_mhz * 1e6, *lane, c["T"])
+                                    *lane, c["T"])
 
     pkg, jx = "esp32_opus_player_tpu_torch/csrc/", "esp32_opus_player_tpu/"
     meta = {
@@ -1540,7 +1586,8 @@ def main() -> int:
     kernels[1]["by_N"] = res["K2"]["by_N"]
     # the row-layout step (entry()) on K1-K3 behind its transposes
     kernels[0]["entry_step"] = entry_t
-    kernels[3]["k2_then_k3_ms"] = res["K4"]["k2_then_k3_ms"]
+    kernels[3].update({k: res["K4"][k] for k in (
+        "k2_then_k3_ms", "by_N")})
     # K7 at a 16-row bucket too (the 48-stream pool's)
     kernels[6].update(ms_b16=res["K7"]["ms_b16"],
                       bound_ms_b16=res["K7"]["bound_ms_b16"])

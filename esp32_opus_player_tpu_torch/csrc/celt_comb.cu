@@ -13,10 +13,11 @@
 // stride each: the pool passes columns of its staging rows), so the call
 // is this one launch.
 //
-// Tile and threads: a block owns kTileStreams = 8 adjacent streams, so a
-// row of its tile is one 32-byte sector of buf, and has 8 warps, one per
-// stream. It stages rows [start - hist, start + N) of its 8 columns into
-// shared memory with 4-byte cp.async copies (hist = the largest lag of
+// Tile and threads (comb_tile_kernel<false>, celt_comb.cuh, which K4
+// shares): a block owns kTileStreams = 8 adjacent streams, so a row of its
+// tile is one 32-byte sector of buf, and has 8 warps, one per stream. It
+// stages rows [start - hist, start + N) of its 8 columns into shared
+// memory with 4-byte cp.async copies (hist = the largest lag of
 // its streams + 2, at most 1026; a block whose streams are all no-ops
 // returns before it stages anything), transposed so that one stream's
 // samples are contiguous, the stream stride being 4 modulo 32 words: the
@@ -52,127 +53,11 @@
 // (an empty graph replay, the floor of that method: 0.0015-0.0044 ms) and
 // the profiler reads 0.0145 ms a call in the mono pool; one thread per
 // stream through global memory took 0.288 ms (PERF.md).
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "celt_comb.cuh"
 
 using namespace otpu;
-
-namespace {
-
-constexpr int kTileStreams = 8;
-constexpr int kThreads = 32 * kTileStreams;
-constexpr int kRowsPerPass = kThreads / kTileStreams;
-
-// The 12 parameter vectors of a frame (comb1 then comb2, each T0, T1, g0,
-// g1, tapset0, tapset1), each B values `stride` elements apart: the caller's
-// own tensors, whatever they are columns of.
-struct CombRows {
-  const int32_t* p[12];
-  long long stride[12];
-};
-
-__device__ __forceinline__ CombPar comb_par_rows(
-    const CombRows& rows, int first, int b,
-    const int32_t* __restrict__ gains) {
-  int32_t v[6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-    v[i] = rows.p[first + i][(size_t)b * rows.stride[first + i]];
-  return comb_par(v[0], v[1], v[2], v[3], v[4], v[5], gains);
-}
-
-// the smallest stride >= rows that is 4 modulo 32
-inline __host__ __device__ int tile_stride(int rows) {
-  return (rows + 27) / 32 * 32 + 4;
-}
-
-// One comb_filter call over x[0, n) of one stream's tile row (x[-k] is
-// the sample k rows back), by the 32 lanes of the stream's warp.
-__device__ __forceinline__ void comb_region_tile(
-    int32_t* x, int n, const CombPar& p, const int32_t* __restrict__ ftab,
-    int lane) {
-  if (p.nop) return;
-  const int n_end = p.g1z ? min(n, kOverlap) : n;
-  const int n_ov = p.same ? 0 : min(n_end, kOverlap);
-  int ch = min(32, min(p.T0, p.T1) - 2);
-  for (int c0 = 0; c0 < n_ov; c0 += ch) {
-    const int i = c0 + lane;
-    if (lane < ch && i < n_ov) {
-      const int32_t* a = x + i - p.T0;
-      const int32_t* c = x + i - p.T1;
-      x[i] = comb_xfade(p, ftab[i], x[i], a[-2], a[-1], a[0], a[1], a[2],
-                        c[-2], c[-1], c[0], c[1], c[2]);
-    }
-    __syncwarp();
-  }
-  ch = min(32, p.T1 - 2);
-  for (int c0 = n_ov; c0 < n_end; c0 += ch) {
-    const int i = c0 + lane;
-    if (lane < ch && i < n_end) {
-      const int32_t* c = x + i - p.T1;
-      x[i] = comb_const(p, x[i], c[-2], c[-1], c[0], c[1], c[2]);
-    }
-    __syncwarp();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-comb_step_kernel(int32_t* __restrict__ buf, int B, int start, int N,
-                 const CombRows rows, const int32_t* __restrict__ ftab,
-                 const int32_t* __restrict__ gains, int stride) {
-  extern __shared__ int32_t tile[];          // kTileStreams x stride
-  __shared__ int need[kTileStreams];
-  const int b0 = blockIdx.x * kTileStreams;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n1 = min(kOverlap, N);
-
-  // the walker's parameters; how much history its stream needs
-  const bool live = b0 + warp < B;
-  CombPar p1, p2;
-  p1.nop = p2.nop = true;
-  int reach = 0;
-  if (live) {
-    p1 = comb_par_rows(rows, 0, b0 + warp, gains);
-    if (N > n1) p2 = comb_par_rows(rows, 6, b0 + warp, gains);
-    if (!p1.nop) reach = max(p1.T0, p1.T1) + 2;
-    if (!p2.nop) reach = max(reach, max(p2.T0, p2.T1) + 2);
-  }
-  if (lane == 0) need[warp] = reach;
-  __syncthreads();
-  int hist = 0;
-#pragma unroll
-  for (int s = 0; s < kTileStreams; ++s) hist = max(hist, need[s]);
-  if (hist == 0) return;                     // the whole block: no-ops
-
-  // stage rows [start - hist, start + N): 8 streams x 4 rows per warp
-  const int s = threadIdx.x % kTileStreams;
-  const int r0 = threadIdx.x / kTileStreams;
-  const int n_rows = hist + N;
-  const bool mine = b0 + s < B;
-  int32_t* g = buf + (size_t)(start - hist) * B + b0 + s;
-  int32_t* t = tile + s * stride;
-  if (mine)
-    for (int r = r0; r < n_rows; r += kRowsPerPass)
-      __pipeline_memcpy_async(t + r, g + (size_t)r * B, 4);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
-  if (live) {
-    int32_t* x = tile + warp * stride + hist;
-    comb_region_tile(x, n1, p1, ftab, lane);
-    if (N > n1) comb_region_tile(x + n1, N - n1, p2, ftab, lane);
-  }
-  __syncthreads();
-
-  if (mine)
-    for (int r = hist + r0; r < n_rows; r += kRowsPerPass)
-      g[(size_t)r * B] = t[r];
-}
-
-}  // namespace
 
 // buf: (L, B) int32, updated in place over rows [start, start+N);
 // start >= MAX_PERIOD + 2 and start + N <= L are the caller's to check.
@@ -186,23 +71,7 @@ extern "C" int celt_comb_step(int32_t* buf, int B, int start, int N,
                               const long long* par_stride,
                               const int32_t* ftab, const int32_t* gains,
                               void* stream) {
-  if (B <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  CombRows rows;
-  for (int i = 0; i < 12; ++i) {
-    rows.p[i] = par[i];
-    rows.stride[i] = par_stride[i];
-  }
-  const int stride = tile_stride(kMaxPeriod + 2 + N);
-  const int smem = kTileStreams * stride * (int)sizeof(int32_t);
-  static int smem_allowed = 0;
-  if (smem > smem_allowed) {
-    cudaError_t e = cudaFuncSetAttribute(
-        comb_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_allowed = smem;
-  }
-  comb_step_kernel<<<(B + kTileStreams - 1) / kTileStreams, kThreads, smem,
-                     (cudaStream_t)stream>>>(buf, B, start, N, rows, ftab,
-                                             gains, stride);
-  return (int)cudaGetLastError();
+  return launch_comb_tile<false>(buf, B, start, N, par, par_stride, ftab,
+                                 gains, nullptr, nullptr, nullptr,
+                                 (cudaStream_t)stream);
 }

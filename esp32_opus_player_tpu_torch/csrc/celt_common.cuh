@@ -34,6 +34,14 @@ __device__ __forceinline__ int32_t mult16_16_q15(int32_t a, int32_t b) {
   return (a * b) >> 15;
 }
 
+// The deemphasis coefficient (0.85 in Q15), and 27853 << 17 read as int32
+// (27853 * 2^17 - 2^32): smul(t, 27853), the 64-bit product shifted right
+// by 15, is the high word of t * (27853 << 17) as unsigned, which is
+// __mulhi(t, kPreemphHi) + t (exact; the sum wraps as uint32, and its
+// value fits int32). K3 and K4's epilogue take the product so.
+constexpr int32_t kPreemph = 27853;
+constexpr int32_t kPreemphHi = (int32_t)(27853u << 17);
+
 __device__ __forceinline__ int32_t clamp32(int32_t x, int32_t lo,
                                            int32_t hi) {
   return x < lo ? lo : (x > hi ? hi : x);

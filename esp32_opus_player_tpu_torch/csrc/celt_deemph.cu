@@ -28,15 +28,18 @@
 // The walk: a first-order recurrence, sequential over the N samples and
 // truncating at every step (smul), so no exact scan exists. A sample's
 // chain is two instructions: the sum, and the product as the high word
-// of one multiply (kPreemphHi below). The samples come into registers a
-// group of kGroup ahead of the stores, and a whole group is walked with
-// no guard per sample (nvcc makes each guard a branch, which costs more
-// than the chain).
+// of one multiply (kPreemphHi, celt_common.cuh). The samples come into
+// registers a group of kGroup ahead of the stores, and a whole group is
+// walked with no guard per sample (nvcc makes each guard a branch, which
+// costs more than the chain).
 //
-// What bounds it: that chain, ~17 cycles a sample x 960 samples, about
-// half the call, then the first piece's staging and the launch; the
-// bytes (each input read once, each output written once) would take a
-// fifth of it (NVIDIA H100 80GB HBM3, 700 W; PERF.md has the times).
+// What bounds it: that chain. Its floor is the two instructions' latency,
+// ~4 cycles each, 8 cycles a sample (3.9 us at N 960 and 1980 MHz;
+// chip_smoke.py's DEEMPH_CHAIN_CYCLES); the walk takes ~17 cycles a
+// sample, about half the call, then the first piece's staging and the
+// launch; the bytes (each input read once, each output written once)
+// would take a fifth of it (NVIDIA H100 80GB HBM3, 700 W; PERF.md has the
+// times).
 // The walk reads no global memory.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -47,12 +50,6 @@ using namespace otpu;
 
 namespace {
 
-constexpr int32_t kPreemph = 27853;
-// 27853 << 17 read as int32 (27853 * 2^17 - 2^32): smul(t, 27853), the
-// 64-bit product shifted right by 15, is the high word of t * (27853 <<
-// 17) as unsigned, which is __mulhi(t, kPreemphHi) + t (exact; the sum
-// wraps as uint32, and its value fits int32)
-constexpr int32_t kPreemphHi = (int32_t)(27853u << 17);
 constexpr int kThreads = 256;   // of a block
 constexpr int kCols = 8;        // columns of one channel a block owns
 constexpr int kPieces = 4;      // commit groups of the staging

@@ -132,7 +132,7 @@ def _bind(so):
     so.silk_cng.restype = i
     so.silk_cng.argtypes = [p, p, p, p, i, i, i, p]
     so.celt_comb_deemph.restype = i
-    so.celt_comb_deemph.argtypes = [p, i, i, i, p, p, p, p, p, p, p]
+    so.celt_comb_deemph.argtypes = [p, i, i, i, p, p, p, p, p, p, p, p]
     so.celt_plc.restype = i
     so.celt_plc.argtypes = [p, ll, i, p, p, p, p, p, p, i, p]
     so.otpu_cuda_error_string.restype = ctypes.c_char_p

@@ -125,30 +125,38 @@ def _check_buf(what: str, bufT):
                          f"tensor")
 
 
+def _par_args(what: str, bufT, comb1, comb2):
+    """The 12 parameter vectors as the tile kernels read them: pointers
+    and element strides (any stride: the pool passes columns of its
+    staging rows), and the vectors, kept alive by the caller."""
+    B = bufT.shape[1]
+    par = [v.to(I32) for v in (*comb1, *comb2)]
+    if len(par) != 12 or any(v.shape != (B,) or v.device != bufT.device
+                             for v in par):
+        raise ValueError(f"{what}: params must be 12 x (B,) on the "
+                         f"buffer's device")
+    ptrs = (ctypes.c_void_p * 12)(*(v.data_ptr() for v in par))
+    strides = (ctypes.c_longlong * 12)(*(v.stride(0) for v in par))
+    return ptrs, strides, par
+
+
 def comb_filter_step_T(bufT, start: int, N: int, comb1, comb2):
     """K2 wrapper, in place on bufT (L, B) int32; returns bufT. CPU
     tensors take the twin; CUDA tensors launch csrc/celt_comb.cu (never
-    the twin). The kernel reads the 12 parameter vectors where they lie
-    (any element stride: the pool passes columns of its staging rows)."""
+    the twin). The kernel reads the 12 parameter vectors where they lie."""
     if start < MAX_PERIOD + 2 or start + N > bufT.shape[0]:
         raise ValueError("comb_filter_step_T: rows out of range")
     if bufT.device.type == "cpu":
         return comb_filter_step_T_ref(bufT, start, N, comb1, comb2)
     from .. import _build
     _check_buf("comb_filter_step_T", bufT)
-    B = bufT.shape[1]
-    par = [v.to(I32) for v in (*comb1, *comb2)]
-    if len(par) != 12 or any(v.shape != (B,) or v.device != bufT.device
-                             for v in par):
-        raise ValueError("comb_filter_step_T: params must be 12 x (B,) on "
-                         "the buffer's device")
-    ptrs = (ctypes.c_void_p * 12)(*(v.data_ptr() for v in par))
-    strides = (ctypes.c_longlong * 12)(*(v.stride(0) for v in par))
+    ptrs, strides, _par = _par_args("comb_filter_step_T", bufT, comb1, comb2)
     gains, f_tab = _tables(bufT.device)
     with torch.cuda.device(bufT.device):
         err = _build.lib().celt_comb_step(
-            bufT.data_ptr(), B, start, N, ptrs, strides, f_tab.data_ptr(),
-            gains.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            bufT.data_ptr(), bufT.shape[1], start, N, ptrs, strides,
+            f_tab.data_ptr(), gains.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "celt_comb_step")
     comb_filter_step_T.launches += 1
     return bufT
@@ -178,10 +186,7 @@ def comb_deemph_step_T(bufT, start: int, N: int, comb1, comb2, mem):
     from .. import _build
     _check_buf("comb_deemph_step_T", bufT)
     B = bufT.shape[1]
-    par = torch.stack([*comb1, *comb2]).to(I32).contiguous()
-    if par.shape != (12, B) or par.device != bufT.device:
-        raise ValueError("comb_deemph_step_T: params must be 12 x (B,) on "
-                         "the buffer's device")
+    ptrs, strides, _par = _par_args("comb_deemph_step_T", bufT, comb1, comb2)
     mem = mem.to(I32).contiguous()
     if mem.shape != (B,) or mem.device != bufT.device:
         raise ValueError("comb_deemph_step_T: mem must be (B,) on the "
@@ -191,7 +196,7 @@ def comb_deemph_step_T(bufT, start: int, N: int, comb1, comb2, mem):
     mem2 = torch.empty_like(mem)
     with torch.cuda.device(bufT.device):
         err = _build.lib().celt_comb_deemph(
-            bufT.data_ptr(), B, start, N, par.data_ptr(), f_tab.data_ptr(),
+            bufT.data_ptr(), B, start, N, ptrs, strides, f_tab.data_ptr(),
             gains.data_ptr(), mem.data_ptr(), mem2.data_ptr(),
             pcm.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "celt_comb_deemph")

@@ -17,10 +17,11 @@ from esp32_opus_player_tpu_torch.ops.celt.deemph import deemphasis_T
 from torch_port_util import DBS, OV, assert_equal, comb_params, t32
 
 
-@pytest.mark.parametrize("N", [960, 120])
+@pytest.mark.parametrize("N", [960, 480, 240, 120])
 def test_comb_deemph_matches_pallas_and_composition(N):
-    """N 960 runs both comb regions, N 120 only the first. The edge rows
-    of comb_params (no-op, unchanged params, g1 = 0) are in."""
+    """Every CELT frame size: N 960, 480 and 240 run both comb regions,
+    N 120 only the first. The edge rows of comb_params (no-op, unchanged
+    params, g1 = 0) are in."""
     rng = np.random.default_rng(40 + N)
     B = 8
     buf = rng.integers(-(1 << 26), 1 << 26, (DBS + OV, B)).astype(np.int32)

@@ -209,7 +209,7 @@ def test_deemph_kernel_matches_twin(dev, CC, rows, downsample):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("N", [960, 120])
+@pytest.mark.parametrize("N", [960, 480, 240, 120])
 def test_comb_deemph_kernel_matches_twin(dev, N):
     """K4: one launch against K2's twin then K3's."""
     from esp32_opus_player_tpu_torch.ops.celt.comb import (
@@ -225,6 +225,37 @@ def test_comb_deemph_kernel_matches_twin(dev, N):
     assert comb_deemph_step_T.launches == n + 1
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", ["random", "lag 15", "lag 1024", "no-op",
+                                  "ragged"])
+@pytest.mark.parametrize("N", [960, 480, 240, 120])
+def test_comb_deemph_kernel_matches_k2_then_k3(dev, N, case):
+    """K4 against the K2 kernel then the K3 kernel on the same inputs, bit
+    for bit: random lags, every lag at 15 or at 1024, streams 16..31 (a
+    whole block of K4's tile, two of K2's) no-ops in both regions, and a
+    ragged width."""
+    from esp32_opus_player_tpu_torch.ops.celt.comb import (
+        comb_deemph_step_T, comb_filter_step_T)
+    from esp32_opus_player_tpu_torch.ops.celt.deemph import deemphasis_T
+    rows = 2047 if case == "ragged" else B
+    rng = np.random.default_rng(N + len(case))
+    buf = t32(rng.integers(-(1 << 26), 1 << 26, (DBS + OV, rows)), dev)
+    combs = []
+    for _ in range(2):
+        c = comb_params(rng, rows)
+        if case.startswith("lag"):
+            c[0][:] = c[1][:] = int(case.split()[1])
+        if case == "no-op":
+            c[2][16:32] = c[3][16:32] = 0
+        combs.append(tuple(t32(v, dev) for v in c))
+    mem = t32(rng.integers(-(1 << 20), 1 << 20, rows), dev)
+    b2 = comb_filter_step_T(buf.clone(), DBS - N, N, *combs)
+    pcm, mem2 = deemphasis_T(b2[None, DBS - N:DBS], mem[:, None])
+    got = comb_deemph_step_T(buf, DBS - N, N, *combs, mem)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], b2) and torch.equal(got[1], pcm[0])
+    assert torch.equal(got[2], mem2[:, 0])
 
 
 def _golden(name):
@@ -576,7 +607,7 @@ def test_cng_is_one_launch(dev):
 PLC_PCM, PLC_Q12, PLC_LPC = 16, 16 * 4096, 0.05
 
 
-@pytest.mark.parametrize("R", [205, 7])
+@pytest.mark.parametrize("R", [205, 103, 7])
 @pytest.mark.parametrize("CC", [1, 2])
 def test_plc_kernel_matches_plain(dev, CC, R):
     from esp32_opus_player_tpu_torch.ops.celt.plc_kernel import (
@@ -600,6 +631,23 @@ def test_plc_kernel_matches_plain(dev, CC, R):
     keep[rows] = False
     assert torch.equal(dm[:, :, keep], st[0][:, :, keep])
     assert torch.equal(lpc[keep], st[3][keep]) and not pcm[:, :, keep].any()
+
+
+@pytest.mark.parametrize("CC", [1, 2])
+def test_plc_kernel_repeated_conceals(dev, CC):
+    """A lane whose rows all repeat a conceal (no pitch search, no LPC
+    fit: the carried pitch and LPC), against the plain version."""
+    from esp32_opus_player_tpu_torch.ops.celt.plc_kernel import (
+        celt_plc_T, celt_plc_T_ref)
+    st, pcmT, rows, first = plc_lane(dev, CC, 205, 30 + CC)
+    first = torch.zeros_like(first)
+    (dm, pre, pitch, lpc), pcm = plc_run(celt_plc_T, st, pcmT, rows, first)
+    (rdm, rpre, rpitch, rlpc), rpcm = plc_run(celt_plc_T_ref, st, pcmT,
+                                               rows, first)
+    assert torch.equal(pitch, rpitch) and torch.equal(lpc, rlpc)
+    err = lambda a, b: int((a.long() - b.long()).abs().max())
+    assert err(pcm, rpcm) <= PLC_PCM and err(dm, rdm) <= PLC_Q12
+    assert err(pre, rpre) <= PLC_Q12
 
 
 @pytest.mark.parametrize("CC", [1, 2])

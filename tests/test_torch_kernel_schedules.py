@@ -51,7 +51,25 @@ K9 (csrc/silk_cng.cu) walks only the rows whose mask is on, one thread
 each, the LPC in transposed form with its running sums built once from
 the incoming state, and copies the other rows and their states.
 `_cng_by_schedule` is that in numpy and is held to the Pallas kernel in
-interpret mode and to jax_plc.cng_add at orders 10 and 16."""
+interpret mode and to jax_plc.cng_add at orders 10 and 16.
+
+P1 (csrc/celt_plc.cu) is float32 and sums in orders of its own: every
+energy and correlation of the pitch search's 2x pass and of the LPC fit
+by a warp (lane l takes terms l, l + 32, ... with fmaf, then a fixed
+xor-shuffle tree), the 4x correlations and the scans' first window
+energies a thread each (even and odd terms apart, then added), Levinson
+in registers in the plain version's order, the IIR a warp's 32 samples
+at a time (lane j: the step's inputs through the impulse response plus
+the 24 outputs before the step through their responses), and the
+deemphasis as 32 lanes of 30 samples whose end memories meet in a
+shuffle scan.
+`_p1_by_schedule` is that kernel in numpy float32, and is held to the
+plain version (ops/celt/torch_plc.py) and to the JAX package's
+celt_plc_core at P1's bounds (T equal on every row; PCM within 16 LSB,
+decode_mem and preemph within 16 LSB in Q12, LPC within 5 % of a
+channel's largest coefficient) on tests/test_torch_celt_plc.py's seeded
+rows; a scan that drops the lanes' carried memories is shown to break
+the PCM bound."""
 import functools
 
 import numpy as np
@@ -60,6 +78,7 @@ import torch
 
 import jax.numpy as jnp
 
+from esp32_opus_player_tpu.ops.celt import jax_plc
 from esp32_opus_player_tpu.ops.celt import jax_synthesis as js
 from esp32_opus_player_tpu.ops.silk import jax_core as sjc
 from esp32_opus_player_tpu.ops.silk import jax_plc as sjp
@@ -67,11 +86,12 @@ from esp32_opus_player_tpu.ops.silk.pallas_core import (
     cng_add_pallas, silk_plc_conceal_pallas)
 from esp32_opus_player_tpu.ops.celt.pallas_comb import (
     comb_filter_step_T as jax_comb_step_T)
-from esp32_opus_player_tpu_torch.ops.celt import comb
+from esp32_opus_player_tpu_torch.ops.celt import comb, torch_plc
+from esp32_opus_player_tpu_torch.ops.tables.celt_tables import window120
 from esp32_opus_player_tpu_torch.ops.silk import torch_core as tc
 from esp32_opus_player_tpu_torch.ops.silk.core_kernel import silk_core_ref
 
-from torch_port_util import (DBS, OV, assert_equal, comb_params,
+from torch_port_util import (DBS, OV, assert_equal, comb_params, plc_rows,
                              silk_core_inputs, silk_plc_inputs, t32)
 
 SILK_SETS = [(16, 4, 16), (12, 4, 16), (8, 4, 10), (16, 2, 16)]
@@ -622,3 +642,340 @@ def test_cng_schedule_matches_jax(frame, order, masks):
     want = sjp.cng_add(*map(jnp.asarray, args), frame=frame, order=order)
     assert_equal(got[0], np.asarray(want[0]), "xq")
     assert_equal(got[1], np.asarray(want[1]), "state")
+
+
+# ---- P1: the float32 conceal in the kernel's summation orders ------------
+
+F32 = np.float32
+PLC_WIN = np.asarray(window120, F32) / F32(32768.0)
+PLC_PRE = F32(27853.0 / 32768.0)
+
+
+def _fma(a, b, c):
+    """fmaf: the product and the sum rounded once (float64 holds the
+    float32 product exactly)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(F32)
+
+
+def _p1_warp_dot(a, b):
+    """A warp's dot product over the last axis: lane l accumulates terms
+    l, l + 32, ... in order with fmaf, then the lanes meet in the xor
+    tree (offsets 16, 8, 4, 2, 1)."""
+    n = a.shape[-1]
+    pad = [(0, 0)] * (a.ndim - 1) + [(0, -n % 32)]
+    a = np.pad(a, pad).reshape(*a.shape[:-1], -1, 32)
+    b = np.pad(b, pad).reshape(a.shape)
+    acc = np.zeros(a.shape[:-2] + (32,), F32)
+    for k in range(a.shape[-2]):
+        acc = _fma(a[..., k, :], b[..., k, :], acc)
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ off]
+    return acc[..., 0]
+
+
+def _p1_lag_window(k):
+    t = F32(0.008) * F32(k)
+    return F32(1.0) - t * t
+
+
+def _p1_levinson(ac, p):
+    """_celt_lpc over rows (R, p + 1), each product and sum on its own."""
+    R = ac.shape[0]
+    lpc = np.zeros((R, p), F32)
+    error = ac[:, 0].copy()
+    done = ac[:, 0] == 0
+    for i in range(p):
+        rr = ac[:, i + 1].copy()
+        for j in range(i):
+            rr = rr + lpc[:, j] * ac[:, i - j]
+        r = -rr / np.where(error != 0, error, F32(1.0))
+        new = lpc.copy()
+        new[:, i] = r
+        for j in range((i + 1) >> 1):
+            t1, t2 = lpc[:, j].copy(), new[:, i - 1 - j].copy()
+            new[:, j] = t1 + r * t2
+            new[:, i - 1 - j] = t2 + r * t1
+        lpc = np.where(done[:, None], lpc, new)
+        error = np.where(done, error, error - r * r * error)
+        done = done | (error < F32(0.001) * ac[:, 0])
+    return lpc
+
+
+def _p1_best_pitch(xc, y2, Syy, length, max_pitch):
+    """find_p1_best_pitch over rows, in lag order."""
+    R = xc.shape[0]
+    bn0, bn1 = np.full(R, -1, F32), np.full(R, -1, F32)
+    bd0, bd1 = np.zeros(R, F32), np.zeros(R, F32)
+    bp0, bp1 = np.zeros(R, int), np.ones(R, int)
+    for i in range(max_pitch):
+        x16 = xc[:, i] * F32(1e-12)
+        num = x16 * x16
+        c1 = (xc[:, i] > 0) & (num * bd1 > bn1 * Syy)
+        c0 = c1 & (num * bd0 > bn0 * Syy)
+        bn1 = np.where(c0, bn0, np.where(c1, num, bn1))
+        bd1 = np.where(c0, bd0, np.where(c1, Syy, bd1))
+        bp1 = np.where(c0, bp0, np.where(c1, i, bp1))
+        bn0 = np.where(c0, num, bn0)
+        bd0 = np.where(c0, Syy, bd0)
+        bp0 = np.where(c0, i, bp0)
+        Syy = np.maximum(F32(1.0), Syy + y2[:, i + length] - y2[:, i])
+    return bp0, bp1
+
+
+def _p1_pitch(buf, CC):
+    """celt_plc_pitch_search as P1 schedules it; buf (R, CC, 2168)."""
+    R = buf.shape[0]
+    rows = np.arange(R)
+    x = buf[:, 0, :DBS] + buf[:, 1, :DBS] if CC == 2 else buf[:, 0, :DBS]
+    x_lp = np.empty((R, 1024), F32)
+    x_lp[:, 0] = F32(0.25) * x[:, 1] + F32(0.5) * x[:, 0]
+    x_lp[:, 1:] = (F32(0.25) * (x[:, 1:2046:2] + x[:, 3:2048:2])
+                   + F32(0.5) * x[:, 2:2047:2])
+    ac = np.stack([_p1_warp_dot(x_lp[:, :1024 - k], x_lp[:, k:])
+                   for k in range(5)], 1)
+    ac[:, 0] *= F32(1.0001)
+    for k in range(1, 5):
+        ac[:, k] *= _p1_lag_window(k)
+    l4 = _p1_levinson(ac, 4)
+    g = F32(0.9)
+    for k in range(4):
+        l4[:, k] = l4[:, k] * g
+        g = g * F32(0.9)
+    c1 = F32(0.8)
+    fir = [l4[:, 0] + F32(0.8), l4[:, 1] + c1 * l4[:, 0],
+           l4[:, 2] + c1 * l4[:, 1], l4[:, 3] + c1 * l4[:, 2], c1 * l4[:, 3]]
+    xw = x_lp.copy()
+    for k in range(5):
+        past = np.concatenate([np.zeros((R, k + 1), F32),
+                               x_lp[:, :1023 - k]], 1)
+        xw = xw + fir[k][:, None] * past
+    x4 = xw[:, ::2]
+
+    def square_sum(v):
+        """The scans' first window energy, a thread's: four accumulators
+        over i mod 4, then (0 + 1) + (2 + 3)."""
+        acc = [np.zeros(R, F32) for _ in range(4)]
+        for n in range(v.shape[1]):
+            acc[n % 4] = _fma(v[:, n], v[:, n], acc[n % 4])
+        return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+    # 4x: a thread a lag, even and odd terms apart
+    xc = np.zeros((R, 311), F32)
+    for q in range(155):
+        acc0, acc1 = np.zeros(R, F32), np.zeros(R, F32)
+        for n in range(0, 332, 2):
+            acc0 = _fma(x4[:, 180 + n], x4[:, q + n], acc0)
+            acc1 = _fma(x4[:, 181 + n], x4[:, q + n + 1], acc1)
+        xc[:, q] = acc0 + acc1
+    b0, b1 = _p1_best_pitch(xc, x4 * x4, F32(1.0) + square_sum(x4[:, :332]),
+                            332, 155)
+    # 2x: the lags within +-2 of the doubled candidates, warp sums
+    xc2 = np.zeros((R, 311), F32)
+    syy = square_sum(xw[:, :664])
+    for q in range(10):
+        lag = np.where(q < 5, 2 * b0, 2 * b1) - 2 + q % 5
+        ok = (lag >= 0) & (lag < 310) & (
+            (q < 5) | (lag < 2 * b0 - 2) | (lag > 2 * b0 + 2))
+        lagc = np.clip(lag, 0, 309)
+        win_y = xw[rows[:, None], lagc[:, None] + np.arange(664)]
+        v = _p1_warp_dot(xw[:, 360:1024], win_y)
+        xc2[rows[ok], lagc[ok]] = np.maximum(F32(-1.0), v[ok])
+    p, _ = _p1_best_pitch(xc2, xw * xw, F32(1.0) + syy, 664, 310)
+    a, b = xc2[rows, np.maximum(p - 1, 0)], xc2[rows, p]
+    c = xc2[rows, np.minimum(p + 1, 309)]
+    off = np.where(c - a > F32(0.7) * (b - a), 1,
+                   np.where(a - c > F32(0.7) * (b - c), -1, 0))
+    off = np.where((p > 0) & (p < 309), off, 0)
+    return 720 - (2 * p - off)
+
+
+def _p1_deemph_scan(x, m0, carry=True):
+    """The deemphasis as the kernel's warp runs it: x (R, 960), m0 (R,);
+    lane l walks samples [30 l, 30 l + 30) from a zero memory, the lanes'
+    end memories meet in a shuffle scan (m_l = kPre^30 m_{l-1} + own),
+    then each lane walks again from the memory before it. Returns (t
+    (R, 960), the memory after the last sample)."""
+    R = x.shape[0]
+    xl = x.reshape(R, 32, 30)
+    m = np.zeros((R, 32), F32)
+    for u in range(30):
+        m = PLC_PRE * (xl[:, :, u] + m)
+    A = F32(1.0)
+    for _ in range(30):
+        A = PLC_PRE * A
+    m[:, 0] = _fma(A, m0, m[:, 0])
+    ad = A
+    for d in (1, 2, 4, 8, 16):
+        up = np.concatenate([np.zeros((R, d), F32), m[:, :-d]], 1)
+        m = np.where(np.arange(32) >= d, _fma(ad, up, m), m)
+        ad = ad * ad
+    mi = np.concatenate([m0[:, None], m[:, :-1]], 1)
+    if not carry:
+        mi = np.where(np.arange(32) == 0, mi, F32(0.0))
+    t = np.empty_like(xl)
+    for u in range(30):
+        t[:, :, u] = xl[:, :, u] + mi
+        mi = PLC_PRE * t[:, :, u]
+    return t.reshape(R, 960), mi[:, 31]
+
+
+def _p1_iir(x, a, hist):
+    """The IIR y[t] = x[t] - sum_k a_k y[t - 1 - k] over x (R, 1080) as the
+    kernel's warp steps it, 32 samples a step: h, the first 32 impulse-
+    response samples (transposed form, fmaf); G[j, k] = sum_{t <= min(j,
+    23 - k)} h[j - t] (-a[t + k]), the response j samples into a step to
+    the k-th state (the output k + 1 samples before it); lane j's output
+    (z0 + z1) + (p0 + p1), z the step's inputs through h (even and odd m
+    apart), p the 24 outputs before the step through G[j] (even and odd k
+    apart): z sums h[j - i] x[t0 + i] over the step's inputs i = 0..31 in
+    order (h is 0 before its start, x past its end). hist (R, 24): the
+    history's last 24 samples, oldest first."""
+    R, n = x.shape
+    st = [np.zeros(R, F32) for _ in range(24)]
+    h = np.empty((R, 32), F32)
+    for m in range(32):
+        yn = F32(1.0 if m == 0 else 0.0) + st[0]
+        h[:, m] = yn
+        st = [_fma(-a[:, k], yn, st[k + 1]) for k in range(23)] + [
+            -a[:, 23] * yn]
+    G = np.zeros((R, 32, 24), F32)
+    for j in range(32):
+        for k in range(24):
+            for t in range(min(j, 23 - k) + 1):
+                G[:, j, k] = _fma(h[:, j - t], -a[:, t + k], G[:, j, k])
+    y = np.concatenate([hist, np.zeros((R, n), F32)], 1)     # y[24 + t]
+    hpad = np.concatenate([np.zeros((R, 32), F32), h], 1)
+    xpad = np.concatenate([x, np.zeros((R, 32), F32)], 1)
+    lanes = np.arange(32)
+    for t0 in range(0, n, 32):
+        z = [np.zeros((R, 32), F32), np.zeros((R, 32), F32)]
+        for i in range(32):
+            z[i % 2] = _fma(hpad[:, 32 + lanes - i], xpad[:, t0 + i, None],
+                            z[i % 2])
+        p = [np.zeros((R, 32), F32), np.zeros((R, 32), F32)]
+        for k in range(24):
+            p[k % 2] = _fma(G[:, :, k], y[:, 24 + t0 - 1 - k][:, None],
+                            p[k % 2])
+        out = (z[0] + z[1]) + (p[0] + p[1])
+        w = min(32, n - t0)
+        y[:, 24 + t0:24 + t0 + w] = out[:, :w]
+    return y[:, 24:]
+
+
+def _p1_by_schedule(dm, pre, pitch, lpc, first, CC, carry=True):
+    """celt_plc_core as P1 schedules it, numpy float32; the arguments and
+    results are celt_plc_core's. (A repeated conceal's random carried LPC
+    may make its IIR overflow; the energy clamp then silences the row, as
+    in the kernel and the plain version.)"""
+    with np.errstate(over="ignore", invalid="ignore"):
+        return _p1_rows(dm, pre, pitch, lpc, first, CC, carry)
+
+
+def _p1_rows(dm, pre, pitch, lpc, first, CC, carry):
+    R = dm.shape[0]
+    rows = np.arange(R)
+    buf = dm.astype(F32) / F32(4096.0)
+    T = np.where(first, _p1_pitch(buf, CC), pitch)
+    T = np.clip(T, 100, 720)
+    fade = np.where(first, F32(1.0), F32(0.8))
+    exc_len = np.minimum(2 * T, 1024)
+    dl = exc_len >> 1
+    i_mp, i_el = np.arange(1024), np.arange(1080)
+    pcm = np.empty((R, 960, CC), np.int16)
+    dm2, pre2, lpc2 = np.empty_like(dm), np.empty_like(pre), lpc.copy()
+    for c in range(CC):
+        exc = buf[:, c, 1024:2048]
+        w = exc.copy()
+        w[:, :120] *= PLC_WIN
+        w[:, 904:] *= PLC_WIN[::-1]
+        ac = np.stack([_p1_warp_dot(w[:, :1024 - k], w[:, k:])
+                       for k in range(25)], 1)
+        ac[:, 0] *= F32(1.0001)
+        for k in range(1, 25):
+            ac[:, k] *= _p1_lag_window(k)
+        a = np.where(first[:, None], _p1_levinson(ac, 24), lpc[:, c])
+        lpc2[:, c] = a
+        wh = exc.copy()
+        for j in range(24):
+            wh = wh + a[:, j:j + 1] * buf[:, c, 1023 - j:2047 - j]
+        exc_w = np.where(i_mp >= 1024 - exc_len[:, None], wh, exc)
+        in1 = i_mp >= 1024 - dl[:, None]
+        in2 = (i_mp >= 1024 - exc_len[:, None]) & ~in1
+        e1 = np.where(in1, exc_w, F32(0.0))
+        e2 = np.where(in2, exc_w, F32(0.0))
+        E1 = F32(1.0) + _p1_warp_dot(e1, e1)
+        E2 = F32(1.0) + _p1_warp_dot(e2, e2)
+        decay = np.sqrt(np.minimum(E1, E2) / E2)
+        att, pw = [], decay
+        for _ in range(11):
+            att.append(fade * pw)
+            pw = pw * decay
+        att = np.stack(att, 1)
+        jmod, wraps = i_el % T[:, None], i_el // T[:, None]
+        src = buf[rows[:, None], c, 2048 - T[:, None] + jmod]
+        S1 = _p1_warp_dot(src, src) / F32(1024.0)
+        x = (att[rows[:, None], wraps]
+             * exc_w[rows[:, None], 1024 - T[:, None] + jmod])
+        syn = _p1_iir(x, a, buf[:, c, 2024:2048])
+        S2 = _p1_warp_dot(syn, syn) / F32(1024.0)
+        ratio = np.sqrt((S1 / F32(2.0) + F32(1.0))
+                        / (S2 / F32(2.0) + F32(1.0)))
+        g = np.concatenate([F32(1.0) - PLC_WIN[None, :]
+                            * (F32(1.0) - ratio[:, None]),
+                            np.repeat(ratio[:, None], 960, 1)], 1)
+        syn = np.where((S1 < S2)[:, None], syn * g, syn)
+        syn = np.where((S1 > F32(0.25) * S2)[:, None], syn, F32(0.0))
+        h = PLC_WIN[:60] * syn[:, 1079:1019:-1] + PLC_WIN[60:][::-1] \
+            * syn[:, 960:1020]
+        b2 = np.concatenate([buf[:, c, 960:2048], syn[:, :960], h,
+                             buf[:, c, 2108:]], 1)
+        dm2[:, c] = np.rint(np.clip(b2, -524288.0, 524287.0)
+                            * F32(4096.0)).astype(np.int32)
+        t, m = _p1_deemph_scan(syn[:, :960], pre[:, c].astype(F32)
+                            / F32(4096.0), carry)
+        pcm[:, :, c] = np.clip(np.rint(t), -32768, 32767)
+        pre2[:, c] = np.rint(m * F32(4096.0)).astype(np.int32)
+    return pcm, dm2, pre2, T.astype(np.int32), lpc2
+
+
+def _p1_err(got, want):
+    """The measured distances of P1's bounds; T must be equal."""
+    pcm, dm, pre, T, lpc = (np.asarray(v) for v in got)
+    rp, rdm, rpre, rT, rlpc = (np.asarray(v) for v in want)
+    assert_equal(T, rT, "T")
+    d = lambda x, y: int(np.abs(x.astype(np.int64) - y).max())
+    return dict(pcm=d(pcm, rp), dm=d(dm, rdm), pre=d(pre, rpre),
+                lpc=float((np.abs(lpc - rlpc).max(2)
+                           / np.maximum(1.0, np.abs(rlpc).max(2))).max()))
+
+
+@functools.lru_cache(maxsize=None)
+def _p1_case(CC):
+    """tests/test_torch_celt_plc.py's seeded rows (8, first and repeated
+    conceals, both pitch clamps) and the schedule's answer."""
+    args = plc_rows(np.random.default_rng(7 + CC), 8, CC)
+    return args, _p1_by_schedule(*args, CC)
+
+
+@pytest.mark.parametrize("against", ["plain", "jax"])
+@pytest.mark.parametrize("CC", [1, 2])
+def test_p1_by_schedule_within_bounds(CC, against):
+    args, got = _p1_case(CC)
+    if against == "plain":
+        want = torch_plc.celt_plc_core(*map(torch.tensor, args), CC=CC)
+    else:
+        want = jax_plc.celt_plc_core(*args, CC=CC)
+    err = _p1_err(got, want)
+    print(f"P1 schedule against {against}, CC {CC}: {err}")
+    assert err["pcm"] <= 16 and err["dm"] <= 16 * 4096, err
+    assert err["pre"] <= 16 * 4096 and err["lpc"] <= 0.05, err
+
+
+def test_p1_deemph_scan_needs_its_carry():
+    """The check has teeth: lanes that start from a zero memory instead of
+    the scanned one put the PCM far outside its bound."""
+    args, _ = _p1_case(1)
+    bad = _p1_by_schedule(*args, 1, carry=False)
+    want = torch_plc.celt_plc_core(*map(torch.tensor, args), CC=1)
+    assert _p1_err(bad, want)["pcm"] > 16

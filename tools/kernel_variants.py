@@ -4,25 +4,31 @@ phase cut out, each built into its own library and timed in turns.
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 tools/kernel_variants.py [k1] [k3] [k6] [k8] [k9] [--rounds 3]
+    python3 tools/kernel_variants.py [k1] [k3] [k4] [k6] [k8] [k9] [p1] \
+        [--rounds 3]
 
 A variant is a list of (text, replacement) edits to one source file;
-each text must occur in it. A phase is cut by making its loop run zero
-times or its branch never taken, so the kernel still writes its outputs
-(no longer the right values) and nvcc keeps the other phases. Each
-variant is timed as chip_smoke.py times a kernel (one wrapper call
+each text must occur in it (tests/test_torch_kernel_variants.py holds
+them to the committed sources). A phase is cut by making its loop run
+zero times or its branch never taken, so the kernel still writes its
+outputs (no longer the right values) and nvcc keeps the other phases.
+Each variant is timed as chip_smoke.py times a kernel (one wrapper call
 captured in a CUDA graph, replayed between CUDA events), at the path's
 shape: K1's fused entry at LM 3, B 2048, with no stream, a seeded half
 or every stream transient (its history rows restored before each
-variant's bits are taken); K3 at CC 1, B 2048; K6 as its bare entry (B 2048, n 160) and as
-its fused one (WB, B 2048, the 304-sample block as a column slice); K8
-at WB (16, 4, 16), B 2048, and K9 at B 2048, frame 320, order 16, every
-10th row on, their operands column slices as the pool passes them. The
-variants run in turns, round by round, the order reversed every other
-round. Prints one JSON line per kernel: the card, each variant's device
-ms per round (per call, where a kernel has several), and whether its
-outputs equal the committed source's bit for bit (a cut phase changes
-them; a launch shape or a layout must not).
+variant's bits are taken); K3 at CC 1, B 2048; K4 at N 960, 480, 240 and
+120, B 2048; K6 as its bare entry (B 2048, n 160) and as its fused one
+(WB, B 2048, the 304-sample block as a column slice); K8 at WB (16, 4,
+16), B 2048, and K9 at B 2048, frame 320, order 16, every 10th row on,
+their operands column slices as the pool passes them; P1 at 205 rows of
+a 2048-column lane, CC 1 all first conceals and chip_smoke.py's two
+seeded lanes (CC 1 and 2, about half first), and at 132 rows (one an
+SM). A call that updates its inputs in place has them restored before
+each variant is timed. The variants run in turns, round by round, the
+order reversed every other round. Prints one JSON line per kernel: the
+card, each variant's device ms per round (per call, where a kernel has
+several), and whether its outputs equal the committed source's bit for
+bit (a cut phase changes them; a launch shape or a layout must not).
 """
 import argparse
 import json
@@ -120,6 +126,62 @@ VARIANTS = {
         "8 streams, 256 threads": [("kThreads = 512;", "kThreads = 256;"),
                                    ("kStreams = 16;", "kStreams = 8;")],
     }),
+    "p1": ("celt_plc.cu", {
+        "as committed": [],
+        "no pitch search": [("  if (first) {\n    float* x_lp = s.a[0];",
+                             "  if (false) {\n    float* x_lp = s.a[0];")],
+        "no top-2 scans": [
+            ("  for (; i0 + kGroup <= n; i0 += kGroup) {\n"
+             "    float cn[kGroup], cs[kGroup];",
+             "  for (; i0 + kGroup <= 0; i0 += kGroup) {\n"
+             "    float cn[kGroup], cs[kGroup];"),
+            ("for (int i = i0; i < n; ++i) step(i, num[i], syy[i]);",
+             "for (int i = n; i < n; ++i) step(i, num[i], syy[i]);")],
+        "no Syy chains": [
+            ("  for (; i0 + kGroup <= n; i0 += kGroup) {\n"
+             "    float ci[kGroup], co[kGroup];",
+             "  for (; i0 + kGroup <= 0; i0 += kGroup) {\n"
+             "    float ci[kGroup], co[kGroup];"),
+            ("  for (int i = i0; i < n; ++i) {\n    out[i] = Syy;",
+             "  for (int i = n; i < n; ++i) {\n    out[i] = Syy;")],
+        "no LPC fit": [("  if (first) {\n    for (int k = tid;",
+                        "  if (false) {\n    for (int k = tid;")],
+        "no IIR": [("for (int t0 = 0; t0 < kElen; t0 += kBlk) {",
+                    "for (int t0 = kElen; t0 < kElen; t0 += kBlk) {")],
+        "no deemphasis": [("  if (chan >= 0) {\n    // t = x + m",
+                           "  if (false) {\n    // t = x + m")],
+        "no staging": [("? dm[((long long)c * kL + j) * cap + row] : 0;",
+                        "? (int32_t)((j * 2654435761u) >> 8) : 0;")],
+        "no decode_mem stores": [
+            ("col[(long long)r * cap] = q12(",
+             "if (row < 0) col[(long long)r * cap] = q12("),
+            ("col[(long long)(kDBS - kN + i) * cap] = q12(v);",
+             "if (row < 0) col[(long long)(kDBS - kN + i) * cap] = q12(v);")],
+        "128 threads": [("kThreads = 256;", "kThreads = 128;")],
+        "512 threads": [("kThreads = 256;", "kThreads = 512;")],
+    }),
+    "k4": ("celt_comb.cuh", {
+        "as committed": [],
+        "no comb walk": [
+            ("    comb_region_tile(x, n1, p1, ftab, lane);",
+             "    if (false) comb_region_tile(x, n1, p1, ftab, lane);"),
+            ("if (N > n1) comb_region_tile(x + n1,",
+             "if (false) comb_region_tile(x + n1,")],
+        "no deemphasis walk": [("if (lane < S && b0 + lane < B)",
+                                "if (false)")],
+        "no row staging": [
+            ("  if (mine)\n    for (int r = r0; r < n_rows; r += kRowsPerPass)",
+             "  if (false)\n    for (int r = r0; r < n_rows; "
+             "r += kRowsPerPass)")],
+        "no write-back": [("} else if (mine && hist > 0) {",
+                           "} else if (false) {"),
+                          ("    if (mine)\n      for (int r = r0; r < N;",
+                           "    if (false)\n      for (int r = r0; r < N;")],
+        "8 streams a block": [("kDeemphStreams = 16;",
+                               "kDeemphStreams = 8;")],
+        "4 streams a block": [("kDeemphStreams = 16;",
+                               "kDeemphStreams = 4;")],
+    }),
     "k9": ("silk_cng.cu", {
         "as committed": [],
         "loads after the stores": [("for (; i + 4 <= frame; i += 4) {",
@@ -158,8 +220,11 @@ def cases(dev):
     import numpy as np
     import torch
     sys.path.insert(0, str(ROOT / "tests"))
-    from torch_port_util import (DBS, OV, column_slices, imdct_tdac_inputs,
+    from torch_port_util import (DBS, OV, column_slices, comb_params,
+                                 imdct_tdac_inputs, plc_lane,
                                  silk_plc_inputs)
+    from esp32_opus_player_tpu_torch.ops.celt.comb import comb_deemph_step_T
+    from esp32_opus_player_tpu_torch.ops.celt.plc_kernel import celt_plc_T
     from esp32_opus_player_tpu_torch.ops.celt.deemph import deemphasis_T
     from esp32_opus_player_tpu_torch.ops.celt.fft import celt_imdct_tdac_T
     from esp32_opus_player_tpu_torch.ops.silk.cng_kernel import cng_add
@@ -203,7 +268,36 @@ def cases(dev):
         k1[flags] = (lambda f=f, w=work, tr=tr: [celt_imdct_tdac_T(f, w, tr,
                                                                   LM=3)],
                      lambda d=d, w=work: w.copy_(d))
-    return {"k1": k1,
+    # P1: 205 rows of a 2048-column lane (a tenth, as the pools lose),
+    # CC 1 all first conceals (the mono pool's kind), and chip_smoke.py's
+    # two seeded lanes (about half the rows first); and 132 rows, one an
+    # SM; each call conceals in place, so reset restores the lane before
+    # the bits are taken
+    p1 = {}
+    for name, CC, R, seed, all_first in (
+            ("cc1 first", 1, 205, 78, True), ("cc1 seeded", 1, 205, 78, False),
+            ("cc2 seeded", 2, 205, 79, False),
+            ("cc1 first, 132 rows", 1, 132, 78, True)):
+        st, pcm, rows, first = plc_lane(dev, CC, R, seed)
+        if all_first:
+            first = torch.ones_like(first)
+        work = [t.clone() for t in (*st, pcm)]
+        p1[name] = (lambda w=work, r=rows, f=first: (
+                        celt_plc_T(*w, r, f), w)[1],
+                    lambda w=work, s=(*st, pcm): [a.copy_(b) for a, b
+                                                  in zip(w, s)])
+    # K4 at every frame size, B 2048, in place on its rows (reset)
+    k4 = {}
+    for N in (960, 480, 240, 120):
+        c1, c2 = ([torch.as_tensor(v, device=dev)
+                   for v in comb_params(rng, 2048)] for _ in range(2))
+        buf = i32(-(1 << 26), 1 << 26, (DBS + OV, 2048))
+        memk = i32(-(1 << 20), 1 << 20, 2048)
+        work = buf.clone()
+        k4[f"N {N}"] = (lambda w=work, N=N, c1=c1, c2=c2, m=memk: list(
+                            comb_deemph_step_T(w, DBS - N, N, c1, c2, m)),
+                        lambda w=work, b=buf: w.copy_(b))
+    return {"k1": k1, "p1": p1, "k4": k4,
             "k3": {"": lambda: deemphasis_T(syn, mem)},
             "k6": {"bare": lambda: up2_hq(S, x160),
                    "fused": lambda: up2_fir(S, F, x304, **fir)},
@@ -213,8 +307,8 @@ def cases(dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernels", nargs="*", help="k1, k3, k6, k8, k9 "
-                    "(default all)")
+    ap.add_argument("kernels", nargs="*", help="k1, k3, k4, k6, k8, k9, "
+                    "p1 (default all)")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     args.kernels = args.kernels or list(VARIANTS)
@@ -244,16 +338,21 @@ def main() -> int:
             for name, lib in libs.items():
                 _build._lib = lib
                 outs[name] = []
-                for fn, reset in fns.values():
+                for c, (fn, reset) in fns.items():
                     if reset is not None:
                         reset()
-                    outs[name] += [t.clone() for t in fn()]
+                    try:
+                        outs[name] += [t.clone() for t in fn()]
+                    except RuntimeError as e:
+                        raise SystemExit(f"{k} {name!r} {c!r}: {e}")
             torch.cuda.synchronize()
             for r in range(args.rounds):
                 order = list(libs) if r % 2 == 0 else list(libs)[::-1]
                 for name in order:
                     _build._lib = libs[name]
-                    for c, (fn, _) in fns.items():
+                    for c, (fn, reset) in fns.items():
+                        if reset is not None:
+                            reset()
                         ms[name][c].append(device_ms(fn, 20))
             # one call: variant -> ms per round, as before
             if list(calls[k]) == [""]:
