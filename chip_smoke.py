@@ -33,7 +33,14 @@ Phases (any failure exits non-zero; there is no CPU path):
    at the bounds PLC_TOL (T equal on every row) on seeded lanes of 2048
    columns (CC 1 and 2, 205 and 7 rows, first and repeated conceals,
    both pitch clamps), and bit-identical to itself for a row alone and
-   among 205; timed at 205 rows, CC 1 and 2;
+   among 205; timed at 205 rows, CC 1 and 2. K1's fused entry, K2 and
+   K3 are also timed at the mixed-LM pool's lane widths ((LM, rows) (0,
+   410), (1, 410), (2, 410), (3, 818)). K5 is held and timed at (B, n,
+   order) (16, 40, 10), (16, 60, 10), (16, 80, 16) (the 48-stream SILK
+   pool's buckets), (16, 320, 16) (the JAX conceal frame's) and (2048,
+   320, 16). The bounds of K5 and of K7-K9's LPC walks take the LPC
+   chain (LPC_CHAIN_CYCLES a sample), as K3's and K4's take the
+   deemphasis chain;
 4. the CELT path through StreamPool.run(): a mono pool of 2048 streams in
    K = 64 windows and a stereo pool of 1024 streams per frame, every
    stream bit-equal to tests/golden; then a small CELT pool with packet
@@ -74,13 +81,18 @@ Phases (any failure exits non-zero; there is no CPU path):
    them (K7, K6, K8 and K9 run here). Then compat
    loss (every 7th packet) on the card against the reference's
    tests/golden/silk_wb_mono_20ms.loss7.pcm;
-7. one JSON line of per-kernel results (all nine kernels and P1,
+7. the scalar route (check_scalar_route): a chained and a mode-switching
+   stream beside a CELT lane and a 5.1 multistream row, bit-equal to
+   tests/golden; a lossy RFC mode-switching row whose lost CELT frames
+   launch P1 at one row from the scalar decoder, held to its CPU twin at
+   P1's bounds; its wall seconds and frames printed;
+8. one JSON line of per-kernel results (all nine kernels and P1,
    which has no pl.pallas_call: it replaces jax_plc.celt_plc_core; K1's row is
    its fused entry, with its bare entry beside it; K4, the fused comb +
    deemphasis, is held to its plain version and timed beside K2 + K3
    but, as in the JAX package, no path calls it; K5 is held and timed
-   at the 16-row bucket shapes, but K7 does every bucket's LPC
-   recurrence on the card: K4, K5 and K1's bare entry must show 0
+   at its five shapes, but K7 does every bucket's LPC recurrence on the
+   card: K4, K5 and K1's bare entry must show 0
    launches on the pools), and last the line {"ok": true, "device":
    {...}}.
 """
@@ -93,6 +105,9 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 B = 2048
 DBS, OV = 2048, 120
+# (LM, rows) of the mixed-LM pool's lanes: 2048 streams over five
+# fixtures, the two 20 ms ones in one lane
+MIXED_LANES = [(0, 410), (1, 410), (2, 410), (3, 818)]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 INT32_LANES = 132 * 64             # SMs x INT32 lanes per SM
 # The deemphasis (K3, K4's epilogue) truncates at every step, so no exact
@@ -100,6 +115,13 @@ INT32_LANES = 132 * 64             # SMs x INT32 lanes per SM
 # dependent integer instructions (the sum, and the product as a high
 # word: csrc/celt_deemph.cu), at least ~4 cycles each at the SM clock
 DEEMPH_CHAIN_CYCLES = 8
+# The SILK LPC synthesis (K5, and the walks of K7, K8 and K9) has one
+# dependent chain a sample once every older tap is summed off it: the
+# newest output's smulwb (its high half times the coefficient, the sum,
+# as one product: ~1 instruction at best), the sum with the older taps
+# (1), lshift_sat32's clip (2) and shift (1) and the saturating add of
+# the next input (1): six dependent integer instructions at ~4 cycles
+LPC_CHAIN_CYCLES = 24
 
 
 def nvidia_smi(query: str) -> str:
@@ -169,10 +191,11 @@ def bound(nbytes: float, ops: float, sm_hz: float) -> dict:
                 int32_ops=ops)
 
 
-def deemph_chain(t: dict, N: int, sm_hz: float) -> float:
-    """The deemphasis chain's floor over N samples (ms), folded into t's
-    bound (from `bound`) where it is the larger."""
-    chain = N * DEEMPH_CHAIN_CYCLES / sm_hz * 1e3
+def chain_floor(t: dict, n: int, cycles: int, sm_hz: float) -> float:
+    """A recurrence's floor (ms): n dependent steps of `cycles` each at
+    the SM clock, folded into t's bound (from `bound`) where it is the
+    larger (by "operations": the chain's dependent instructions)."""
+    chain = n * cycles / sm_hz * 1e3
     if chain > t["bound_ms"]:
         t.update(bound_ms=chain, bound_by="operations")
     return chain
@@ -677,7 +700,7 @@ def check_celt_kernels(dev, card, sm_hz):
                            lambda: deemphasis_T_ref(syn, mem), 20),
                  **bound(CC * nb * (960 * 4 + 960 * 2 + 8),
                          CC * nb * 960 * 8, sm_hz))
-        chain = deemph_chain(t, 960, sm_hz)
+        chain = chain_floor(t, 960, DEEMPH_CHAIN_CYCLES, sm_hz)
         report(card, f"K3 deemphasis_T, CC={CC}, B={nb} (the chain's floor "
                f"{chain:.5f} ms)", t)
         if CC == 1:
@@ -689,7 +712,7 @@ def check_celt_kernels(dev, card, sm_hz):
         t = dict(**timings(lambda: deemphasis_T(syn, mem),
                            lambda: deemphasis_T_ref(syn, mem), 20),
                  **bound(B * (N * 4 + N * 2 + 8), B * N * 8, sm_hz))
-        chain = deemph_chain(t, N, sm_hz)
+        chain = chain_floor(t, N, DEEMPH_CHAIN_CYCLES, sm_hz)
         report(card, f"K3 deemphasis_T, CC=1, N={N}, B={B} (the chain's "
                f"floor {chain:.5f} ms)", t)
         res["K3"]["by_N"][N] = {k: t[k] for k in ("ms", "plain_ms",
@@ -742,7 +765,7 @@ def check_celt_kernels(dev, card, sm_hz):
             20),
             **bound(k2_bytes + B * (N * 2 + 8), k2_ops + B * N * 8, sm_hz),
             k2_then_k3_ms=device_ms(k2_then_k3, 20))
-        chain = deemph_chain(t, N, sm_hz)
+        chain = chain_floor(t, N, DEEMPH_CHAIN_CYCLES, sm_hz)
         report(card, f"K4 comb_deemph_step_T, N={N}, B={B} (K2 then K3 in "
                f"two launches: {t['k2_then_k3_ms']:.4f} ms; the deemphasis "
                f"chain's floor {chain:.5f} ms)", t)
@@ -754,6 +777,43 @@ def check_celt_kernels(dev, card, sm_hz):
     res["K4"]["max_abs_err"] = err
     print(f"[{card}] K4 also at B 1, 9, 2047 (ragged), every lag 15 or "
           f"1024, and a block of no-op streams (16..31): bit-equal")
+
+    # K1's fused entry, K2 and K3 at the widths the mixed-LM pool launches
+    # them: its lanes (LM, rows) (0, 410), (1, 410), (2, 410), (3, 818),
+    # one K1 and one K2 call a channel and one K3 call (CC 2) a frame
+    for k in ("K1", "K2", "K3"):
+        res[k]["by_lane"] = {}
+    for LM, Bn in MIXED_LANES:
+        N = 120 << LM
+        f, d, tr = imdct_tdac_inputs(rng, Bn, LM, "random")
+        f, d = t32(f), t32(d)
+        tr = torch.as_tensor(tr, device=dev)
+        if not same([celt_imdct_tdac_T(f, d.clone(), tr, LM=LM)],
+                    [celt_imdct_tdac_T_ref(f, d.clone(), tr, LM=LM)]):
+            raise SystemExit(f"K1 fused (LM {LM}, B {Bn}) differs from its "
+                             f"plain version")
+        work = d.clone()
+        t1 = dict(**timings(
+            lambda: celt_imdct_tdac_T(f, work, tr, LM=LM),
+            lambda: celt_imdct_tdac_T_ref(f, work, tr, LM=LM), 20),
+            **bound(*k1_tdac_work(tr.cpu().numpy(), LM), sm_hz))
+        bufN, d1, d2, _ = k2_case(Bn, N=N)
+        workN = bufN.clone()
+        t2 = dict(**timings(
+            lambda: comb_filter_step_T(workN, DBS - N, N, d1, d2),
+            lambda: comb_filter_step_T_ref(workN, DBS - N, N, d1, d2), 20),
+            **bound(*k2_work(N, d1, d2), sm_hz))
+        syn, mem, _ = k3_case(2, Bn, N=N)
+        t3 = dict(**timings(lambda: deemphasis_T(syn, mem),
+                            lambda: deemphasis_T_ref(syn, mem), 20),
+                  **bound(2 * Bn * (N * 4 + N * 2 + 8), 2 * Bn * N * 8,
+                          sm_hz))
+        chain_floor(t3, N, DEEMPH_CHAIN_CYCLES, sm_hz)
+        for k, t in (("K1", t1), ("K2", t2), ("K3", t3)):
+            report(card, f"{k} at the mixed-LM lane (LM {LM}, B {Bn}, "
+                   f"N {N})", t)
+            res[k]["by_lane"][f"LM{LM}x{Bn}"] = {x: t[x] for x in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}
     return res
 
 
@@ -826,12 +886,14 @@ def check_silk_kernels(dev, card, sm_hz):
                                        lambda: silk_core_ref(*targs, **kw),
                                        20),
                              **bound(*k7_work(args, fs, nb, order), sm_hz))
+            chain_floor(res["K7"], nb * 5 * fs, LPC_CHAIN_CYCLES, sm_hz)
     # and at a 16-row bucket of the 48-stream pool (WB), which K7 takes
     # on the card as it takes every bucket
     args, targs16, kw16, e = k7_case(16, 16, 4, 16)
     t16 = dict(**timings(lambda: silk_core(*targs16, **kw16),
                          lambda: silk_core_ref(*targs16, **kw16), 20),
                **bound(*k7_work(args, 16, 4, 16), sm_hz))
+    chain_floor(t16, 4 * 5 * 16, LPC_CHAIN_CYCLES, sm_hz)
     res["K7"].update(max_abs_err=max(err, e), ms_b16=t16["ms"],
                      bound_ms_b16=t16["bound_ms"])
     report(card, f"K7 silk_core, all 4 (fs, nb, order) sets, also ragged "
@@ -929,9 +991,13 @@ def check_silk_kernels(dev, card, sm_hz):
 
     # K5: the LPC recurrence of one subframe in each bucket of the
     # 48-stream pool (16 rows: NB n 40 and MB n 60 at order 10, WB n 80
-    # at order 16); timed at the WB bucket's shape
+    # at order 16), the JAX conceal frame's (16, 320, 16) and a wide
+    # (2048, 320, 16), each held and timed (ragged widths and wide
+    # coefficients: tests/test_torch_cuda.py::test_lpc_kernel_shapes)
     err = 0
-    for Bs, n, order in [(16, 40, 10), (16, 60, 10), (16, 80, 16)]:
+    by_shape = {}
+    for Bs, n, order in [(16, 40, 10), (16, 60, 10), (16, 80, 16),
+                         (16, 320, 16), (2048, 320, 16)]:
         pres = dev_t(rng.integers(-(1 << 24), 1 << 24, (Bs, n)).astype(
             np.int32))
         A = dev_t(rng.integers(-(1 << 12), 1 << 12, (Bs, order)).astype(
@@ -944,17 +1010,22 @@ def check_silk_kernels(dev, card, sm_hz):
             raise SystemExit(f"K5 (B {Bs}, n {n}, order {order}) differs "
                              f"from its plain version")
         err = max(err, max_err(got[0], want[0]), max_err(got[1], want[1]))
-    # reads: pres, A, state; writes: vs and the state. Per sample: the
-    # order taps (smulwb and sum, 7) and the shift, clip and saturating
-    # sum (8).
-    res["K5"] = dict(max_abs_err=err,
-                     **timings(lambda: lpc_synth(pres, A, s0, order=order),
-                               lambda: lpc_synth_ref(pres, A, s0,
-                                                     order=order), 20),
-                     **bound(Bs * 4 * (n + order + 16 + n + 16),
-                             Bs * n * (7 * order + 8), sm_hz))
-    report(card, f"K5 lpc_synth, 3 bucket shapes; timed: n={n}, "
-           f"order={order}, B={Bs}", res["K5"])
+        # reads: pres, A, state; writes: vs and the state. Per sample:
+        # the order taps (smulwb and sum, 7) and the shift, clip and
+        # saturating sum (8); or the chain, n samples of LPC_CHAIN_CYCLES
+        t = dict(**timings(lambda: lpc_synth(pres, A, s0, order=order),
+                           lambda: lpc_synth_ref(pres, A, s0, order=order),
+                           20),
+                 **bound(Bs * 4 * (n + order + 16 + n + 16),
+                         Bs * n * (7 * order + 8), sm_hz))
+        chain = chain_floor(t, n, LPC_CHAIN_CYCLES, sm_hz)
+        report(card, f"K5 lpc_synth, B={Bs}, n={n}, order={order} (the "
+               f"chain's floor {chain:.5f} ms)", t)
+        by_shape[f"{Bs}x{n}x{order}"] = {k: t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}
+        if (Bs, n, order) == (16, 80, 16):
+            res["K5"] = t
+    res["K5"].update(max_abs_err=err, by_shape=by_shape)
     return res
 
 
@@ -1015,6 +1086,7 @@ def check_loss_kernels(dev, card, sm_hz):
                           lambda: silk_plc_conceal_frame_xla(*targs, **kw),
                           20),
                 **bound(*k8_work(args, fs, nb, order), sm_hz))
+            chain_floor(res["K8"], nb * 5 * fs, LPC_CHAIN_CYCLES, sm_hz)
     res["K8"]["max_abs_err"] = err
     report(card, f"K8 silk_plc_conceal, all 4 (fs, nb, order) sets, also "
            f"B in (1, 15, 17, 2047), all lags 2 fs / 18 fs / rising, "
@@ -1055,6 +1127,7 @@ def check_loss_kernels(dev, card, sm_hz):
         **timings(lambda: cng_add(*targs, **kw),
                   lambda: cng_add_xla(*targs, **kw), 20),
         **bound(*k9_work(m, kw["frame"], kw["order"]), sm_hz))
+    chain_floor(res["K9"], kw["frame"], LPC_CHAIN_CYCLES, sm_hz)
     report(card, f"K9 cng_add, orders 16 and 10, B in (1, 15, 17, 2047, "
            f"2048), masks off / on / every 10th row, operands as "
            f"misaligned column slices; timed: every 10th row, frame 320, "
@@ -1246,6 +1319,79 @@ def plc_match(names, loss, noise_only=()):
                 return False
         return True
     return match, stats
+
+
+def check_scalar_route(dev, card, counted) -> dict:
+    """The scalar route on the card (the JAX pool's scalar and
+    multistream rows, decoded on the host beside the lanes), each pool
+    counted as a path:
+    - a stereo compat pool: a chained source (celt_fb_stereo_20ms, then
+      silk_wb_stereo_20ms), modeswitch_stereo_20ms (SILK, hybrid, CELT)
+      and 64 streams of celt_fb_stereo_20ms in a CELT lane, every stream
+      bit-equal to tests/golden;
+    - ms51_music_fb_20ms (5.1, four elementary streams) through the
+      pool's ("ms",) row, bit-equal to tests/golden;
+    - modeswitch_stereo_20ms in RFC mode with rfc_plc, packets lost in
+      its SILK, CELT and hybrid parts: the lost CELT frames' pitch
+      conceal is P1 at one row, launched by the scalar decoder; held
+      frame by frame to the same pool on the CPU at P1's bounds, and P1
+      must have been launched.
+    Prints the phase's wall seconds and frames."""
+    import numpy as np
+    from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
+    t0 = time.perf_counter()
+    frames = 0
+    a, b = "celt_fb_stereo_20ms", "silk_wb_stereo_20ms"
+    chain = fixture(a).read_bytes() + fixture(b).read_bytes()
+    want = [np.concatenate([golden(a), golden(b)]),
+            golden("modeswitch_stereo_20ms")] + [golden(a)] * 64
+    pool = StreamPool([chain, fixture("modeswitch_stereo_20ms")]
+                      + [fixture(a)] * 64, channels=2, superstep_k=8,
+                      device=dev)
+    if pool.path[:2] != [("scalar",)] * 2 or pool.path[2][0] != "celt":
+        raise SystemExit(f"scalar route: classes {pool.path[:3]}")
+    outs = counted("the scalar route's stereo pool (chained, "
+                   "mode-switching, a CELT lane)", pool.run)
+    for i, (out, ref) in enumerate(zip(outs, want)):
+        if not np.array_equal(out, ref):
+            raise SystemExit(f"scalar route: stream {i} differs from "
+                             f"tests/golden")
+    frames += pool.stats()["frames"]
+    name = "ms51_music_fb_20ms"
+    pool = StreamPool([fixture(name)], channels=6, device=dev)
+    out = counted("the scalar route's multistream row", pool.run)[0]
+    gold = np.fromfile(ROOT / "tests" / "golden" / f"{name}.pcm",
+                       dtype=np.int16).reshape(-1, 6)
+    pre = pool.streams[0].jobs[0].discard_front
+    if pool.path != [("ms",)] or len(out) < 90000 or not np.array_equal(
+            out, gold[pre:pre + len(out)]):
+        raise SystemExit(f"scalar route: {name} differs from tests/golden")
+    frames += pool.stats()["frames"]
+    print(f"[{card}] the scalar route: a chained and a mode-switching "
+          f"stream beside a 64-stream CELT lane, and {name} as an ms row: "
+          f"bit-equal to tests/golden")
+
+    name = "modeswitch_stereo_20ms"
+    lost = {20, 60, 70, 71, 72, 85, 120}          # SILK, CELT, hybrid
+    loss = lambda i, k: k in lost
+    rfc = dict(channels=2, compat_ref=False, rfc_plc=True)
+    twin = StreamPool([fixture(name)], device="cpu", **rfc).run(loss=loss)
+    pool = StreamPool([fixture(name)], device=dev, **rfc)
+    label = "the scalar route's lossy RFC row (rfc_plc)"
+    out = counted(label, lambda: pool.run(loss=loss))
+    match, mstats = plc_match([name], loss)
+    if not match(0, out[0], twin[0]):
+        raise SystemExit(f"scalar route: the lossy {name} row is not within "
+                         f"the P1 bounds of its CPU twin: {mstats}")
+    frames += pool.stats()["frames"]
+    wall = time.perf_counter() - t0
+    print(f"[{card}] {label}: {len(lost)} packets lost, against the CPU "
+          f"twin {mstats['frames']} frames, {mstats['equal']} bit-equal; "
+          f"the rest max |card - CPU| {mstats['max_err']:.0f} LSB, min SNR "
+          f"{mstats['min_snr']} dB; quiet frames {mstats['quiet']}")
+    print(f"[{card}] scalar route phase: {wall:.1f} s wall (the CPU twin "
+          f"included), {frames} frames on the card")
+    return dict(wall_s=wall, frames=frames, lossy_row=mstats, label=label)
 
 
 def main() -> int:
@@ -1505,6 +1651,11 @@ def main() -> int:
     print("compat-loss SILK pool (4 WB streams, K=3, every 7th packet "
           "lost): card == tests/golden loss7")
 
+    scalar = check_scalar_route(dev, card, counted)
+    if not paths[scalar["label"]].get("P1"):
+        raise SystemExit(f"the scalar route's lossy row did not launch P1: "
+                         f"{paths[scalar['label']]}")
+
     launches = totals
     print(f"[{card}] launches over every path: {launches}")
     for label in (mlabel, "entry() at B 8", f"entry() at B {B}"):
@@ -1584,6 +1735,11 @@ def main() -> int:
                       bound_ms_cc2=res["K3"]["bound_ms_cc2"],
                       by_N=res["K3"]["by_N"])
     kernels[1]["by_N"] = res["K2"]["by_N"]
+    # K1's fused entry, K2 and K3 at the mixed-LM pool's lane widths
+    for i, k in ((0, "K1"), (1, "K2"), (2, "K3")):
+        kernels[i]["by_lane"] = res[k]["by_lane"]
+    # K5 at each of its five timed shapes (its row: (16, 80, 16))
+    kernels[4]["by_shape"] = res["K5"]["by_shape"]
     # the row-layout step (entry()) on K1-K3 behind its transposes
     kernels[0]["entry_step"] = entry_t
     kernels[3].update({k: res["K4"][k] for k in (

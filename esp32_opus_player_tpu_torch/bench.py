@@ -24,7 +24,7 @@ materialize (models/stream_pool.py), and materialize_fetch, the part of
 materialize that waits for a window's PCM (the pool's `_fetch_s`).
 
 The port's pool has no fixed_buckets, warmup() or device-resident output
-(ROADMAP.md queue A item 12), so the pool benches take PCM to the host
+(ROADMAP.md queue A item 12b), so the pool benches take PCM to the host
 and warm up by stepping. Left out: bench_link, bench_sharded_device and
 bench_farm_loss (item 14), and the on-card consumer (consume=True, item
 13).

@@ -12,7 +12,7 @@ There is one synthesis, not two. On a CPU tensor it runs the plain
 version, the port of the JAX row functions (ops/celt/row_synthesis.py).
 
 BatchedCELTDecoder (:167) is not ported: its native=False branch is the
-Python symbol walk (ROADMAP.md queue A item 12).
+Python symbol walk (ROADMAP.md queue A item 12b).
 """
 from __future__ import annotations
 

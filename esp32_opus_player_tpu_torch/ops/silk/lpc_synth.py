@@ -10,6 +10,14 @@ launches csrc/silk_lpc.cu; on a CPU tensor it runs `lpc_synth_ref`, the
 LPC loop of jax_core.silk_core_frame_xla. No pool reaches the kernel on
 the card: `torch_core.silk_core_frame` sends every CUDA bucket, whatever
 its width, to K7, which runs this recurrence itself.
+
+The kernel (its source has the design): 16 streams a block, their rows
+of pres staged into shared memory with every load in flight, lane s of
+warp 0 walking stream s in transposed form (only the newest tap on the
+sample's dependent chain), the outputs written back coalesced and the
+state once. chip_smoke.py holds it bit-equal to `lpc_synth_ref` and
+times it against its bound: the larger of its bytes, its int32
+operations and the chain, n samples of LPC_CHAIN_CYCLES at the SM clock.
 """
 from __future__ import annotations
 

@@ -408,6 +408,28 @@ def test_lpc_kernel_matches_plain(dev, order):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("B,n,order,alim", [
+    (16, 80, 16, 1 << 12), (16, 40, 10, 1 << 12), (17, 60, 10, 1 << 15),
+    (2048, 320, 16, 1 << 12), (5, 700, 16, 1 << 12), (3, 7, 16, 1 << 12),
+    (33, 16, 10, 1 << 20), (1, 0, 16, 1 << 12)])
+def test_lpc_kernel_shapes(dev, B, n, order, alim):
+    """K5 at ragged widths, rows longer than its staging chunk (320) and
+    shorter than the state (16), and with coefficients at both ends of 16
+    bits and beyond 16 bits, each product through the hi/lo split."""
+    from esp32_opus_player_tpu_torch.ops.silk.lpc_synth import (
+        lpc_synth, lpc_synth_ref)
+    rng = np.random.default_rng(B * 1000 + n)
+    pres = t32(rng.integers(-(1 << 24), 1 << 24, (B, n)), dev)
+    a = rng.integers(-alim, alim, (B, order))
+    a[0, 0], a[-1, -1] = -alim, alim - 1
+    A = t32(a, dev)
+    s0 = t32(rng.integers(-(1 << 30), 1 << 30, (B, 16)), dev)
+    got = lpc_synth(pres, A, s0, order=order)
+    want = lpc_synth_ref(pres, A, s0, order=order)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("rows", [128, 127, 16, 1])
 def test_silk_core_dispatch(dev, rows):
     """Every CUDA bucket takes one K7 launch, whatever its width (the JAX

@@ -1,7 +1,8 @@
 """The port stands alone: a fresh interpreter runs the entry's step and
 decodes a CELT and a SILK fixture through it, a SILK fixture with lost
 packets (concealment and in-band FEC) and a CELT one with lost packets
-(both conceal branches), the bench module imported,
+(both conceal branches), a fixture through the port's decode_file (the
+scalar route) bit-equal to tests/golden, the bench module imported,
 with neither JAX nor the JAX package loaded, and no source
 file of the port (nor chip_smoke.py, nor the port's tools) imports
 either. A native host library that fails to load raises at parse time."""
@@ -41,6 +42,13 @@ while celt.positions[0] < 12:
     celt.step(lost={0} if k in (3, 6, 7, 8, 9, 10, 11) else None)
 out = celt.collected()[0]
 assert len(out) == 12 * 960 - 312 and out[-960:].any(), out.shape
+import numpy as np
+from esp32_opus_player_tpu_torch import DecoderConfig, decode_file
+pcm = decode_file(sys.argv[2], DecoderConfig(channels=1, compat_ref=True,
+                                             device="cpu"))
+gold = np.fromfile(sys.argv[2].replace("fixtures", "golden").replace(
+    ".opus", ".pcm"), dtype=np.int16).reshape(-1, 2)
+assert np.array_equal(np.repeat(pcm, 2, axis=1), gold)
 print(sorted(m for m in sys.modules if m.startswith("jax")
              or m.split(".")[0] == "esp32_opus_player_tpu"))
 """
@@ -69,8 +77,13 @@ def test_port_sources_never_import_jax():
     assert {"torch_plc.py", "plc_kernel.py", "cng_kernel.py",
             "batch_silk.py", "comb.py", "batch_celt.py", "row_synthesis.py",
             "bench.py", "entry.py", "fixed_point.py", "math.py",
-            "pvq.py"} <= names
+            "pvq.py", "range_decoder.py", "bands.py", "synthesis.py",
+            "plc_ref.py", "celt_decoder.py", "macros.py", "decode.py",
+            "nlsf.py", "core.py", "plc.py", "stereo.py", "resampler.py",
+            "silk_decoder.py", "opus_decoder.py", "ms_decoder.py",
+            "api.py", "device.py"} <= names
     assert (PKG / "ops" / "celt" / "torch_plc.py") in files
+    assert (PKG / "api.py") in files
     for p in files:
         text = p.read_text()
         assert not jax.search(text), p

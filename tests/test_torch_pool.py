@@ -66,18 +66,23 @@ def test_all_lost_steps_inside_a_window():
 
 
 def test_unsupported_sources_raise():
-    """A 5 ms CELT stream batches in RFC mode; in compat mode (20 ms
-    only) it takes the JAX package's scalar path, which the port does not
-    have yet."""
-    for name, channels, item in [("silk_wb_stereo_20ms", 2, "10"),
-                                 ("hybrid_swb_mono_20ms", 1, "11"),
-                                 ("celt_fb_mono_5ms", 1, "12")]:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+    """Streams the JAX pool batches on a path the port lacks raise with
+    its ROADMAP.md item: stereo SILK (10), hybrid (11), RFC-mode SILK of
+    60 ms (12b); a 5 ms CELT stream batches in RFC mode and takes the
+    scalar route in compat mode (20 ms only), as in the JAX pool; a pool
+    that mixes CELT and SILK lanes is item 12b."""
+    for name, channels, compat, item in [
+            ("silk_wb_stereo_20ms", 2, True, "10"),
+            ("hybrid_swb_mono_20ms", 1, True, "11"),
+            ("silk_wb_mono_60ms", 1, False, "12b")]:
+        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             StreamPool([str(fixture_path(name))], channels=channels,
-                       device="cpu")
-    StreamPool([str(fixture_path("celt_fb_mono_5ms"))], compat_ref=False,
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+                       compat_ref=compat, device="cpu")
+    src = [str(fixture_path("celt_fb_mono_5ms"))]
+    assert StreamPool(src, compat_ref=False, device="cpu").path[0][0] == \
+        "celt"
+    assert StreamPool(src, device="cpu").path[0] == ("scalar",)
+    with pytest.raises(NotImplementedError, match="item 12b"):
         StreamPool([str(fixture_path(n)) for n in ("celt_fb_mono_20ms",
                                                    "silk_wb_mono_20ms")],
                    device="cpu")

@@ -230,3 +230,37 @@ def plc_run(fn, st, pcmT, rows, first):
     if pcmT.is_cuda:
         torch.cuda.synchronize()
     return st, pcmT
+
+
+def scalar_matches_golden(name: str, ch: int, range_comparable: bool):
+    """The port's scalar OpusDecoder over every packet of a fixture on the
+    CPU, as tests/test_bitexact_all.py drives the JAX one: the PCM after
+    the pre-skip bit-equal to tests/golden (mono duplicated to the
+    golden's two channels), and each packet's final range equal to the
+    reference's where that test compares them."""
+    import json
+    import pathlib
+    from esp32_opus_player_tpu_torch.host import opusfile
+    from esp32_opus_player_tpu_torch.models.opus_decoder import OpusDecoder
+    tests = pathlib.Path(__file__).resolve().parent
+    pre = json.loads((tests / "fixtures" / "manifest.json").read_text())[
+        name]["pre_skip"]
+    ranges = json.loads((tests / "golden" / f"{name}.ranges.json")
+                        .read_text())
+    gold = np.fromfile(tests / "golden" / f"{name}.pcm",
+                       dtype=np.int16).reshape(-1, 2)
+    s = opusfile.open_file(tests / "fixtures" / f"{name}.opus")
+    dec = OpusDecoder(ch, compat_ref=True, device="cpu")
+    out, n_range_ok = [], 0
+    for j, job in enumerate(s.jobs):
+        out.append(dec.decode(job.data))
+        n_range_ok += dec.final_range == ranges[j]["final_range"]
+    mine = np.concatenate(out)[pre:]
+    if ch == 1:
+        mine = np.repeat(mine, 2, axis=1)
+    n = min(len(mine), len(gold))
+    assert n > 0
+    assert_equal(mine[:n], gold[:n], name)
+    if range_comparable:
+        assert n_range_ok == len(s.jobs), \
+            f"{name}: only {n_range_ok}/{len(s.jobs)} final ranges match"

@@ -4,7 +4,7 @@ phase cut out, each built into its own library and timed in turns.
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 tools/kernel_variants.py [k1] [k3] [k4] [k6] [k8] [k9] [p1] \
+    python3 tools/kernel_variants.py [k1] [k3] [k4] [k5] [k6] [k8] [k9] [p1] \
         [--rounds 3]
 
 A variant is a list of (text, replacement) edits to one source file;
@@ -17,7 +17,9 @@ captured in a CUDA graph, replayed between CUDA events), at the path's
 shape: K1's fused entry at LM 3, B 2048, with no stream, a seeded half
 or every stream transient (its history rows restored before each
 variant's bits are taken); K3 at CC 1, B 2048; K4 at N 960, 480, 240 and
-120, B 2048; K6 as its bare entry (B 2048, n 160) and as its fused one
+120, B 2048; K5 at (B, n, order) (16, 40, 10), (16, 60, 10), (16, 80,
+16), (16, 320, 16) and (2048, 320, 16); K6 as its bare entry (B 2048,
+n 160) and as its fused one
 (WB, B 2048, the 304-sample block as a column slice); K8 at WB (16, 4,
 16), B 2048, and K9 at B 2048, frame 320, order 16, every 10th row on,
 their operands column slices as the pool passes them; P1 at 205 rows of
@@ -182,6 +184,22 @@ VARIANTS = {
         "4 streams a block": [("kDeemphStreams = 16;",
                                "kDeemphStreams = 4;")],
     }),
+    "k5": ("silk_lpc.cu", {
+        "as committed": [],
+        "no walk": [("    if (walker) walk<ORDER>(",
+                     "    if (false) walk<ORDER>(")],
+        "the walk's input from a register": [
+            ("xn[j] = x[min(i + 4 + j, len - 1)];", "xn[j] = i + j;")],
+        "no staging": [("      stage_row(tile + s * w, pres",
+                        "      if (false) stage_row(tile + s * w, pres")],
+        "no write-back": [("for (int k = lane; k < len; k += 32) y[k] =",
+                           "for (int k = len + lane; k < len; k += 32) "
+                           "y[k] =")],
+        "8 streams a block": [("kStreams = 16;", "kStreams = 8;")],
+        "32 streams a block": [("kStreams = 16;", "kStreams = 32;")],
+        "64 threads": [("kThreads = 128;", "kThreads = 64;")],
+        "256 threads": [("kThreads = 128;", "kThreads = 256;")],
+    }),
     "k9": ("silk_cng.cu", {
         "as committed": [],
         "loads after the stores": [("for (; i + 4 <= frame; i += 4) {",
@@ -195,6 +213,11 @@ VARIANTS = {
         "8 streams": [("kStreams = 16;", "kStreams = 8;")],
     }),
 }
+
+
+# (B, n, order) of K5's timed calls
+K5_SHAPES = [(16, 40, 10), (16, 60, 10), (16, 80, 16), (16, 320, 16),
+             (2048, 320, 16)]
 
 
 def build_variant(name: str, src: str, edits, work: pathlib.Path):
@@ -228,6 +251,7 @@ def cases(dev):
     from esp32_opus_player_tpu_torch.ops.celt.deemph import deemphasis_T
     from esp32_opus_player_tpu_torch.ops.celt.fft import celt_imdct_tdac_T
     from esp32_opus_player_tpu_torch.ops.silk.cng_kernel import cng_add
+    from esp32_opus_player_tpu_torch.ops.silk.lpc_synth import lpc_synth
     from esp32_opus_player_tpu_torch.ops.silk.plc_kernel import (
         silk_plc_conceal)
     from esp32_opus_player_tpu_torch.ops.silk.torch_core import (
@@ -297,7 +321,16 @@ def cases(dev):
         k4[f"N {N}"] = (lambda w=work, N=N, c1=c1, c2=c2, m=memk: list(
                             comb_deemph_step_T(w, DBS - N, N, c1, c2, m)),
                         lambda w=work, b=buf: w.copy_(b))
-    return {"k1": k1, "p1": p1, "k4": k4,
+    # K5 at the 48-stream pool's three 16-row bucket shapes, the JAX
+    # conceal frame's (16, 320, 16) and a wide (2048, 320, 16)
+    k5 = {}
+    for Bs, n, order in K5_SHAPES:
+        args = (i32(-(1 << 24), 1 << 24, (Bs, n)),
+                i32(-(1 << 12), 1 << 12, (Bs, order)),
+                i32(-(1 << 24), 1 << 24, (Bs, 16)))
+        k5[f"B {Bs}, n {n}, order {order}"] = (
+            lambda a=args, o=order: list(lpc_synth(*a, order=o)))
+    return {"k1": k1, "p1": p1, "k4": k4, "k5": k5,
             "k3": {"": lambda: deemphasis_T(syn, mem)},
             "k6": {"bare": lambda: up2_hq(S, x160),
                    "fused": lambda: up2_fir(S, F, x304, **fir)},
@@ -307,7 +340,7 @@ def cases(dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernels", nargs="*", help="k1, k3, k4, k6, k8, k9, "
+    ap.add_argument("kernels", nargs="*", help="k1, k3, k4, k5, k6, k8, k9, "
                     "p1 (default all)")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
