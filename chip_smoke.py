@@ -40,7 +40,11 @@ Phases (any failure exits non-zero; there is no CPU path):
    pool's buckets), (16, 320, 16) (the JAX conceal frame's) and (2048,
    320, 16). The bounds of K5 and of K7-K9's LPC walks take the LPC
    chain (LPC_CHAIN_CYCLES a sample), as K3's and K4's take the
-   deemphasis chain;
+   deemphasis chain. S1, the stereo unmix, at ragged widths (1, 9, 1023
+   and 2048 rows), fs 8, 12 and 16, 10 and 20 ms frames, predictors at
+   the Q13 and int16 extremes, timed at the stereo WB pool's shape (B
+   1024, frame 320) and at B 2048; K7 and K8 are held at nb 2 (10 ms)
+   too, and K9 at a 10 ms WB frame;
 4. the CELT path through StreamPool.run(): a mono pool of 2048 streams in
    K = 64 windows and a stereo pool of 1024 streams per frame, every
    stream bit-equal to tests/golden; then a small CELT pool with packet
@@ -81,13 +85,21 @@ Phases (any failure exits non-zero; there is no CPU path):
    them (K7, K6, K8 and K9 run here). Then compat
    loss (every 7th packet) on the card against the reference's
    tests/golden/silk_wb_mono_20ms.loss7.pcm;
-7. the scalar route (check_scalar_route): a chained and a mode-switching
+7. stereo SILK and hybrid (check_stereo_hybrid_paths): compat pools of
+   1024 stereo SILK (NB and WB), 2048 mono hybrid and 1024 stereo hybrid
+   streams, K = 64, bit-equal to tests/golden; RFC pools of 10, 40 and 60
+   ms stereo and mono SILK, 10 ms mono and stereo hybrid, each held to a
+   CPU pool of one stream a fixture; a lossy stereo SILK and a lossy mono
+   hybrid pool (rfc_plc, FEC, a tenth lost) held to their 20 CPU twins;
+   each must have launched its kernels (S1 on every stereo pool);
+8. the scalar route (check_scalar_route): a chained and a mode-switching
    stream beside a CELT lane and a 5.1 multistream row, bit-equal to
    tests/golden; a lossy RFC mode-switching row whose lost CELT frames
    launch P1 at one row from the scalar decoder, held to its CPU twin at
    P1's bounds; its wall seconds and frames printed;
-8. one JSON line of per-kernel results (all nine kernels and P1,
-   which has no pl.pallas_call: it replaces jax_plc.celt_plc_core; K1's row is
+9. one JSON line of per-kernel results (all nine kernels, P1 and S1,
+   which have no pl.pallas_call: they replace jax_plc.celt_plc_core and
+   jax_stereo.ms_to_lr_batch; K1's row is
    its fused entry, with its bare entry beside it; K4, the fused comb +
    deemphasis, is held to its plain version and timed beside K2 + K3
    but, as in the JAX package, no path calls it; K5 is held and timed
@@ -1117,7 +1129,8 @@ def check_loss_kernels(dev, card, sm_hz):
                                  max_err(got[1], want[1]))
 
     err = 0
-    for frame, order in ((320, 16), (160, 10)):
+    # (160, 16): a 10 ms WB or hybrid frame
+    for frame, order in ((320, 16), (160, 10), (160, 16)):
         for Bn in (1, 15, 17, 2047, B):
             for masks in ("off", "on", "tenth"):
                 err = max(err, k9_case(Bn, frame, order, masks)[3])
@@ -1133,6 +1146,80 @@ def check_loss_kernels(dev, card, sm_hz):
            f"misaligned column slices; timed: every 10th row, frame 320, "
            f"order 16, B={B}", res["K9"])
     return res
+
+
+def s1_work(B: int, frame: int) -> tuple:
+    """(bytes, int32 operations) of one S1 call: reads the frame's mid and
+    side and four 2-sample rows (the histories, both predictor pairs),
+    writes L and R and the two new histories. Per sample: the two
+    predictors' ramp (the delta's product, rounding and the step's
+    product and sum, ~6 each), the 3-tap smoothed mid (4), the two
+    smulwb (6 each) with the shifts and sums around them (4), the
+    rounding and clip (4), L and R with their clips (6): ~40."""
+    return B * 4 * (2 * frame + 8 + 2 * frame + 4), B * frame * 40
+
+
+def check_stereo_kernel(dev, card, sm_hz) -> dict:
+    """S1, the stereo unmix, against its plain version on the card at
+    tolerance 0: at ragged widths (1, 9, 1023 and 2048 rows), at fs 8, 12
+    and 16 with 10 and 20 ms frames, with the frame a misaligned slice of
+    a wider tensor and the predictors a column slice of staging-like rows
+    (as the pool passes them), predictors at the Q13 extremes (+-13732,
+    the quantiser's) and at the int16 ones, rows with a zero delta, and
+    histories at +-32767; timed at the stereo WB pool's shape (B 1024,
+    frame 320) and at B 2048."""
+    import numpy as np
+    import torch
+    from esp32_opus_player_tpu_torch.ops.silk.stereo_kernel import (
+        ms_to_lr, ms_to_lr_ref)
+    rng = np.random.default_rng(2027)
+
+    def case(Bn, fs, ms):
+        frame = ms * fs
+        i16 = lambda *sh: rng.integers(-32768, 32768, sh).astype(np.int32)
+        hm, hs = i16(Bn, 2), i16(Bn, 2)
+        prev = rng.integers(-13732, 13733, (Bn, 2)).astype(np.int32)
+        pred = rng.integers(-13732, 13733, (Bn, 2)).astype(np.int32)
+        edge = np.array([[13732, -13732], [-13732, 13732], [32767, -32768],
+                         [-32768, 32767]], dtype=np.int32)
+        for r in range(min(Bn, 4)):
+            prev[r], pred[r] = edge[r], edge[3 - r]
+        if Bn > 5:
+            pred[5] = prev[5]                       # a zero delta
+            hm[4], hs[4] = (32767, -32767), (-32767, 32767)
+        wide = torch.as_tensor(i16(Bn, 2, frame + 5), device=dev)
+        xq = wide[:, :, 3:3 + frame]
+        stg = torch.zeros((Bn, 2, 7), dtype=torch.int32, device=dev)
+        stg[:, 0, 2:4] = torch.as_tensor(pred, device=dev)
+        args = [torch.as_tensor(a, device=dev) for a in (hm, hs, prev)] + [
+            xq, stg[:, 0, 2:4]]
+        kw = dict(fs_khz=fs, frame=frame)
+        got, want = ms_to_lr(*args, **kw), ms_to_lr_ref(*args, **kw)
+        if not same(got, want):
+            raise SystemExit(f"S1 (B {Bn}, fs {fs}, {ms} ms) differs from "
+                             f"its plain version: "
+                             f"{max(max_err(g, w) for g, w in zip(got, want))}")
+        return args, kw, max(max_err(g, w) for g, w in zip(got, want))
+
+    err = 0
+    for Bn in (1, 9, 1023, 2048):
+        for fs in (8, 12, 16):
+            for ms in (10, 20):
+                err = max(err, case(Bn, fs, ms)[2])
+    res = {}
+    for Bn in (1024, 2048):
+        args, kw, e = case(Bn, 16, 20)
+        t = dict(**timings(lambda: ms_to_lr(*args, **kw),
+                           lambda: ms_to_lr_ref(*args, **kw), 20),
+                 **bound(*s1_work(Bn, kw["frame"]), sm_hz))
+        report(card, f"S1 silk_ms_to_lr, B in (1, 9, 1023, 2048), fs 8/12/"
+               f"16, 10 and 20 ms, predictors at the Q13 and int16 "
+               f"extremes; timed: WB 20 ms, B={Bn}", t)
+        res[Bn] = t
+    out = dict(res[1024], max_abs_err=err)
+    out.update({k + "_b2048": res[2048][k] for k in ("ms", "plain_ms",
+                                                     "bound_ms")})
+    return out
 
 
 def check_entry(card, counted) -> dict:
@@ -1394,6 +1481,78 @@ def check_scalar_route(dev, card, counted) -> dict:
     return dict(wall_s=wall, frames=frames, lossy_row=mstats, label=label)
 
 
+def check_stereo_hybrid_paths(dev, card, counted) -> dict:
+    """Stereo SILK and hybrid through StreamPool.run() on the card, each
+    pool counted as a path (returns {label: the kernels it must have
+    launched}):
+    - compat mode: 1024 stereo SILK streams (NB and WB, 20 ms; a lane a
+      rate: K7 on the 2n channel rows, S1, K6's fused entry on 2n rows),
+      2048 mono hybrid streams (SWB) and 1024 stereo hybrid ones (FB), K
+      = 64, every stream bit-equal to tests/golden;
+    - RFC mode: 1024 stereo SILK streams of 10, 40 and 60 ms packets (K7
+      at nb 2; two and three device frames a packet), 1536 mono SILK
+      streams of 10, 40 and 60 ms, 1024 mono and 512 stereo hybrid
+      streams of 10 ms (CELT at LM 2), K = 64, each held to a CPU pool
+      of one stream a fixture (no golden: the reference crashes on these
+      packet sizes);
+    - lossy RFC mode, rfc_plc and in-band FEC, a tenth of the packets
+      lost: 1024 stereo SILK and 1024 mono hybrid streams, each held to a
+      CPU pool of its 20 distinct (fixture, loss phase) streams (K8 and
+      K9 on the channel rows; the hybrid conceal's CELT noise branch from
+      band 17 through the normal frame step)."""
+    from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
+    silk = ("K6", "K7")
+    hyb = ("K1", "K2", "K3", "K6", "K7")
+    want = {}
+
+    def pool(label, names, n, channels, kernels, twins=False, loss=None,
+             min_len=90000, **kw):
+        cpu = None
+        if twins:
+            t0 = time.perf_counter()
+            m = 20 if loss else len(names)
+            cpu = StreamPool([fixture(names[i % len(names)])
+                              for i in range(m)], channels=channels,
+                             superstep_k=64, device="cpu", **kw).run(
+                loss=loss, fec=loss is not None)
+            print(f"{label}: {m} CPU twins in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        path = f"the {label} pool"
+        counted(path, lambda: run_pool(
+            dev, card, label, names, n, 64, channels=channels, twins=cpu,
+            loss=loss, fec=loss is not None, min_len=min_len, **kw))
+        want[path] = kernels
+
+    pool("stereo SILK NB/WB", ["silk_nb_stereo_20ms", "silk_wb_stereo_20ms"],
+         B // 2, 2, silk + ("S1",))
+    pool("hybrid mono SWB", ["hybrid_swb_mono_20ms"], B, 1, hyb)
+    pool("hybrid stereo FB", ["hybrid_fb_stereo_20ms"], B // 2, 2,
+         hyb + ("S1",))
+    rfc = dict(compat_ref=False)
+    pool("RFC stereo SILK 10/40/60 ms", ["silk_wb_fec_stereo_10ms",
+                                         "silk_nb_stereo_40ms",
+                                         "silk_wb_stereo_60ms"],
+         B // 2, 2, silk + ("S1",), twins=True, min_len=60000, **rfc)
+    pool("RFC mono SILK 10/40/60 ms", ["silk_wb_mono_10ms",
+                                       "silk_wb_mono_40ms",
+                                       "silk_wb_mono_60ms"],
+         3 * B // 4, 1, silk, twins=True, min_len=60000, **rfc)
+    pool("RFC hybrid mono 10 ms", ["hybrid_fb_mono_10ms",
+                                   "hybrid_swb_fec_mono_10ms"], B // 2, 1,
+         hyb, twins=True, min_len=60000, **rfc)
+    pool("RFC hybrid stereo 10 ms", ["hybrid_fb_stereo_10ms"], B // 4, 2,
+         hyb + ("S1",), twins=True, min_len=60000, **rfc)
+    tenth = lambda i, k: i % 10 == k % 10
+    plc = dict(compat_ref=False, rfc_plc=True)
+    pool("lossy stereo SILK (rfc_plc, FEC, a tenth lost)",
+         ["silk_wb_fec_stereo_20ms", "silk_wb_stereo_20ms"], B // 2, 2,
+         silk + ("S1", "K8", "K9"), twins=True, loss=tenth, **plc)
+    pool("lossy hybrid mono (rfc_plc, FEC, a tenth lost)",
+         ["hybrid_swb_fec_mono_20ms", "hybrid_swb_mono_20ms"], B // 2, 1,
+         hyb + ("K8", "K9"), twins=True, loss=tenth, **plc)
+    return want
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1410,7 +1569,7 @@ def main() -> int:
     from esp32_opus_player_tpu_torch.ops.silk import (cng_kernel,
                                                       core_kernel,
                                                       lpc_synth, plc_kernel,
-                                                      up2_hq)
+                                                      stereo_kernel, up2_hq)
     dev = torch.device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     card = nvidia_smi("name,power.limit")
@@ -1433,6 +1592,7 @@ def main() -> int:
     res.update(check_silk_kernels(dev, card, sm_mhz * 1e6))
     res.update(check_loss_kernels(dev, card, sm_mhz * 1e6))
     res["P1"] = check_plc_kernel(dev, card)
+    res["S1"] = check_stereo_kernel(dev, card, sm_mhz * 1e6)
 
     # Every path below counts: each wrapper's count is set to 0 here, just
     # before the first pool, and read once after the last; `counted`
@@ -1450,7 +1610,8 @@ def main() -> int:
                 "K7": [core_kernel.silk_core],
                 "K8": [plc_kernel.silk_plc_conceal],
                 "K9": [cng_kernel.cng_add],
-                "P1": [celt_plc.celt_plc_T]}
+                "P1": [celt_plc.celt_plc_T],
+                "S1": [stereo_kernel.ms_to_lr]}
 
     def launch_counts():
         return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
@@ -1651,6 +1812,14 @@ def main() -> int:
     print("compat-loss SILK pool (4 WB streams, K=3, every 7th packet "
           "lost): card == tests/golden loss7")
 
+    # stereo SILK and hybrid (S1 on every stereo frame)
+    stereo_paths = check_stereo_hybrid_paths(dev, card, counted)
+    for label, need in stereo_paths.items():
+        missing = [k for k in need if not paths[label].get(k)]
+        if missing:
+            raise SystemExit(f"{label} did not launch {missing}: "
+                             f"{paths[label]}")
+
     scalar = check_scalar_route(dev, card, counted)
     if not paths[scalar["label"]].get("P1"):
         raise SystemExit(f"the scalar route's lossy row did not launch P1: "
@@ -1769,6 +1938,15 @@ def main() -> int:
         **{f"bound_ms_{k}": p1[k]["bound_ms"] for k in (
             "stereo", "mixed-LM", "seeded_cc1", "seeded_cc2")},
         pools={k: p1[f"pool_{k}"] for k in ("mono", "stereo", "mixed-LM")}))
+    # S1 (no pl.pallas_call: jax_stereo.ms_to_lr_batch is jnp under a
+    # jit): its row is its time at the stereo WB pool's shape
+    s1 = res["S1"]
+    kernels.append(dict(
+        name="silk_ms_to_lr", route="cuda", source=pkg + "silk_stereo.cu",
+        replaces=jx + "ops/silk/jax_stereo.py:26", launches=launches["S1"],
+        **{x: s1[x] for x in keys}, library_ms=None,
+        **{k: s1[k] for k in ("ms_b2048", "plain_ms_b2048",
+                               "bound_ms_b2048")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -53,8 +53,8 @@ from .host import opusfile
 from .models import host_groups as hg
 from .models.celt_pool_T import (_CELT_HDR, celt_packed_frame_T,
                                  celt_pool_superstep_T)
-from .models.silk_pool import (make_bucket, silk_packed_frame,
-                               silk_pool_superstep, stage_width)
+from .models.silk_pool import (make_bucket, silk_frame, silk_pool_superstep,
+                               stage_width)
 from .ops.celt.torch_synthesis import DECODE_BUFFER_SIZE, NB_EBANDS, OVERLAP
 
 FIX = pathlib.Path(__file__).resolve().parents[1] / "tests" / "fixtures"
@@ -74,6 +74,9 @@ POOLS = {
                            "celt_swb_stereo_10ms", "celt_nb_mono_20ms",
                            "celt_fb_mono_20ms"), 2, 2048, 16,
                           dict(compat_ref=False), None),
+    "silk_wb_stereo": (("silk_wb_stereo_20ms",), 2, 1024, 64, {}, None),
+    "hybrid_swb_mono": (("hybrid_swb_mono_20ms",), 1, 2048, 64, {}, None),
+    "hybrid_fb_stereo": (("hybrid_fb_stereo_20ms",), 2, 1024, 64, {}, None),
 }
 
 
@@ -259,7 +262,7 @@ def bench_device_silk(B: int = 2048, iters: int = 10, K: int = 64,
     sdev = torch.as_tensor(stg, device=dev)
     kw = dict(fs=fs, nb=4, order=16)
     st = make_bucket(B, fs, dev)
-    frame = lambda: silk_packed_frame(st, sdev, masked=False, **kw)
+    frame = lambda: silk_frame(st, sdev, masked=False, **kw)
     frame()
     _sync(dev)
     ms = [timed_ms(lambda: [frame() for _ in range(iters)], dev) / iters

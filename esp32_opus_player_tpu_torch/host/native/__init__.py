@@ -622,8 +622,14 @@ class NativeSilkStereoHost:
         src/silk.cpp:1565-1690; payload_ms 10 packets carry one
         nb_subfr=2 LBRR copy). Returns the same dict shape as
         packet(), or None when the packet carries no usable stereo FEC
-        (no mid LBRR, or a mixed LBRR+conceal frame) — the caller
-        falls back to concealment."""
+        (no mid LBRR) — the caller falls back to concealment. A frame
+        whose side channel the previous frame had but the LBRR copy
+        lacks comes back with side None and side_conceal True: the mid
+        is the LBRR copy's, the side is concealed (silk_decode_frame's
+        PLC branch, as the scalar SilkDecoder and libopus do); one with a
+        side copy but no mid copy comes back with mid_conceal True: the
+        mid is concealed (its params are zeros) and the side is the
+        copy's, with no predictors of its own."""
         fl = payload_ms * fs_khz
 
         def alloc():
@@ -673,4 +679,5 @@ class NativeSilkStereoHost:
                     side=todict(sb) if info[0] else None,
                     pred=np.asarray(info[3:5], dtype=np.int32),
                     side_reset=bool(info[1]),
-                    rng=0)
+                    side_conceal=bool(info[5]),
+                    mid_conceal=bool(info[6]), rng=0)

@@ -947,7 +947,27 @@ int silk_host_stereo_fec_c(const unsigned char* data, int len,
         memset(sts[n]->LBRR_flags, 0, sizeof sts[n]->LBRR_flags);
         if (sts[n]->LBRR_flag) sts[n]->LBRR_flags[0] = 1;
     }
-    if (!st0->LBRR_flags[0]) return -4;
+    if (!st0->LBRR_flags[0]) {
+        if (!st1->LBRR_flags[0]) return -4;
+        // no mid copy but a side one: the mid conceals, the side decodes
+        // its copy (no predictors, not mid-only: a side the previous
+        // frame lacked comes back, :378); info[6] says so
+        int reset = prev_dom == 1;
+        if (reset) {
+            st1->lagPrev = 100;
+            st1->LastGainIndex = 10;
+            st1->prevSignalType = 0;
+            st1->first_frame_after_reset = 1;
+        }
+        int r = frame_to_params(ec, st1, 1, 0, 0, s_exc, s_A, s_B, s_gains,
+                                s_inv, s_lag, s_flags, s_adj, s_misc);
+        if (r != 0) return r;
+        for (int i = 0; i < 8; i++) info[i] = 0;
+        info[0] = 1;
+        info[1] = reset;
+        info[6] = 1;
+        return 0;
+    }
     // stereo pred + mid-only come from the LBRR section itself
     // (the :1619 walk at lostFlag==FLAG_DECODE_LBRR)
     i32 pred[2];
@@ -956,7 +976,10 @@ int silk_host_stereo_fec_c(const unsigned char* data, int len,
     if (st1->LBRR_flags[0] == 0)
         dom = ec.icdf(silk_stereo_only_code_mid_iCDF, 8);
     int has_side = (!prev_dom) || st1->LBRR_flags[0] == 1;
-    if (has_side && !st1->LBRR_flags[0]) return -5;
+    // a side the previous frame had but this LBRR copy lacks is
+    // concealed (silk_decode_frame's PLC branch at lostFlag ==
+    // FLAG_DECODE_LBRR): its symbols are not read, info[5] says so
+    int side_conceal = has_side && !st1->LBRR_flags[0];
     int side_reset = (dom == 0 && prev_dom == 1);
     if (side_reset) {
         st1->lagPrev = 100;
@@ -968,17 +991,18 @@ int silk_host_stereo_fec_c(const unsigned char* data, int len,
                               m_gains, m_inv, m_lag, m_flags, m_adj,
                               m_misc);
     if (ret != 0) return ret;
-    if (has_side) {
+    if (has_side && !side_conceal) {
         ret = frame_to_params(ec, st1, 1, 0, 0, s_exc, s_A, s_B,
                               s_gains, s_inv, s_lag, s_flags, s_adj,
                               s_misc);
         if (ret != 0) return ret;
     }
-    info[0] = has_side;
+    info[0] = has_side && !side_conceal;
     info[1] = side_reset;
     info[2] = dom;
     info[3] = pred[0];
     info[4] = pred[1];
+    info[5] = side_conceal;
     return 0;
 }
 

@@ -9,8 +9,12 @@ group's buffers) to keep the concealment state (silk_PLC_update :2895,
 silk_CNG :1342 good branch) and, for a lost frame, produces the device
 kernels' inputs (silk_PLC_conceal :2973 and the CNG loss branch, host
 half). Both run as single native calls on a C struct (host/native
-PlcTrackerState). The Python symbol walk of the JAX package
-(native=False) is not part of the port.
+PlcTrackerState). A stereo stream has one tracker per internal channel
+(the JAX pool's _plc_tracker2 and silk_plc_host_params(..., ch_idx)),
+kept in one `TrackerArray` per channel of a lane; a side channel that
+comes back after mid-only frames resets the channel-state half of its
+tracker (`side_reset`, silk_Decode :378). The Python symbol walk of the
+JAX package (native=False) is not part of the port.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import ctypes
 
 import numpy as np
 
-from ..host.native import PlcTrackerState, _bind_silk, load
+from ..host.native import PlcTrackerState, StateArray, _bind_silk, load
 
 MAX_LPC_ORDER = 16
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -107,3 +111,44 @@ def good_frames(states, rows, buf) -> None:
         trks, _ptr(rows), len(rows), _ptr(buf.A), _ptr(buf.B),
         _ptr(buf.gains), _ptr(buf.inv), _ptr(buf.lag), _ptr(buf.flags),
         _ptr(buf.exc), _ptr(buf.misc), buf.exc.shape[1])
+
+
+def _word(field: str) -> int:
+    return getattr(PlcTrackerState, field).offset // 4
+
+
+class TrackerArray:
+    """The PLC/CNG trackers of n streams (or of one channel of n stereo
+    streams) at internal rate fs_khz with frame_ms device frames, in one
+    StateArray: `good(rows, buf)` ingests decoded rows, `prep(r)` is row
+    r's conceal prep, `last_lost` its plc_last_frame_lost words."""
+
+    def __init__(self, n: int, fs_khz: int, frame_ms: int):
+        self.states = StateArray(n, PlcTrackerState)
+        self.trackers = [NativePlcTracker(fs_khz, frame_ms, st=v)
+                         for v in self.states.views]
+        self.words = self.states.buf.view(np.int32)
+        self.last_lost = self.words[:, LAST_LOST_WORD]
+
+    def good(self, rows, buf) -> None:
+        good_frames(self.states, rows, buf)
+
+    def prep(self, r: int) -> dict:
+        return self.trackers[r].conceal_prep()
+
+    def take_glue(self, rows):
+        """The glue flags of rows (their last frame was concealed), which
+        are cleared: the first good frame after a loss run glues."""
+        glue = self.last_lost[rows] != 0
+        self.last_lost[rows] = 0
+        return glue
+
+    def side_reset(self, rows) -> None:
+        """A side channel that comes back (silk_Decode :378): only the
+        channel-state half of its tracker resets (outBuf and sLPC are
+        zeroed on the device); the PLC and CNG history stays."""
+        w = self.words
+        w[rows, _word("lagPrev")] = 100
+        w[rows, _word("LastGainIndex")] = 10
+        w[rows, _word("prevSignalType")] = 0
+        w[rows, _word("first_frame_after_reset")] = 1

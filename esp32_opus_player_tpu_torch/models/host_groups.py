@@ -80,6 +80,11 @@ class FrameTable:
                                   dtype=np.uint8)
         self.n_packets = np.asarray(npk, dtype=np.int64)
 
+    def frame0(self, r: int, k: int) -> bytes:
+        """The first frame's payload of packet k of row r."""
+        o = int(self.offs[r, k])
+        return self.blob[o:o + int(self.lens[r, k])].tobytes()
+
     def row_args(self, pos, active):
         """Per-row (off, len) for packet cursor `pos` (len -1 where
         inactive). pos: (m,) int array; active: (m,) bool."""
@@ -184,6 +189,42 @@ class _SilkBuffers:
                     match=flags[:, 8:12].astype(bool), adj=g["adj"])
 
 
+def put_row(b: _SilkBuffers, r: int, p: dict) -> None:
+    """Write one frame's params dict (as NativeSilkHost.frame, .packet or
+    .fec_frame returns it) into row r of single-frame buffers b, as the
+    batch entry would have left it."""
+    b.exc[r] = p["exc"]
+    for name in ("A", "B", "gains", "inv", "lag", "adj"):
+        getattr(b, name)[r] = p[name]
+    b.flags[r, 0:4] = p["voiced"]
+    b.flags[r, 4:8] = p["rewhiten"]
+    b.flags[r, 8:12] = p["match"]
+    b.misc[r] = 0
+    b.misc[r, 0] = p["signal_type"]
+    b.misc[r, 3] = p["lag_prev"]
+    b.misc[r, 4] = p["ltp_scale"]
+    b.misc[r, 8:24] = p["nlsf"]
+
+
+def put_stereo(mid: _SilkBuffers, side: _SilkBuffers, info, r: int,
+               sp: dict) -> None:
+    """Write one stereo frame's dict (as NativeSilkStereoHost.packet,
+    .packet_multi or .fec_packet returns it) into row r of the mid and
+    side buffers and of info, as silk_host_stereo_batch leaves them
+    (info: has_side, side_reset, prev_dom, pred (2), and for an LBRR
+    frame side_conceal and mid_conceal); a channel the frame does not
+    code leaves its row as it was."""
+    if not sp.get("mid_conceal"):
+        put_row(mid, r, sp["mid"])
+    if sp["side"] is not None:
+        put_row(side, r, sp["side"])
+    info[r, 0] = sp["side"] is not None
+    info[r, 1] = sp["side_reset"]
+    info[r, 3:5] = sp["pred"]
+    info[r, 5] = sp.get("side_conceal", False)
+    info[r, 6] = sp.get("mid_conceal", False)
+
+
 class SilkGroup:
     """Batched mono SILK symbol phase: 10/20 ms payloads via the frame
     entry (also the SILK half of hybrid rows, exporting ec states for the
@@ -205,28 +246,6 @@ class SilkGroup:
         self.n_threads = n_threads or default_threads()
         self.buf = _SilkBuffers(m, self.frame_len, self.nfr)
         self.ec = np.zeros((m, 9), dtype=np.int32)
-
-    def frame0(self, r: int, k: int) -> bytes:
-        """The first frame's payload of packet k of row r."""
-        o = int(self.table.offs[r, k])
-        return self.table.blob[o:o + int(self.table.lens[r, k])].tobytes()
-
-    def put_row(self, r: int, p: dict) -> None:
-        """Write one frame's params dict (as NativeSilkHost.frame or
-        .fec_frame returns it) into row r of the group buffers, as the
-        batch entry would have left it."""
-        b = self.buf
-        b.exc[r] = p["exc"]
-        for name in ("A", "B", "gains", "inv", "lag", "adj"):
-            getattr(b, name)[r] = p[name]
-        b.flags[r, 0:4] = p["voiced"]
-        b.flags[r, 4:8] = p["rewhiten"]
-        b.flags[r, 8:12] = p["match"]
-        b.misc[r] = 0
-        b.misc[r, 0] = p["signal_type"]
-        b.misc[r, 3] = p["lag_prev"]
-        b.misc[r, 4] = p["ltp_scale"]
-        b.misc[r, 8:24] = p["nlsf"]
 
     def decode(self, pos, active):
         offs, lens, ok = self.table.row_args(pos, active)
@@ -285,6 +304,7 @@ class SilkStereoGroup:
         self.info = np.zeros((m, 8), dtype=np.int32)
         self.prev_dom = np.zeros(m, dtype=np.int32)
 
+
     def decode(self, pos, active):
         offs, lens, ok = self.table.row_args(pos, active)
         m = len(self.idxs)
@@ -292,6 +312,7 @@ class SilkStereoGroup:
         for r, h in enumerate(self.hosts):
             self.prev_dom[r] = h.prev_dom
         mb, sb = self.mid, self.side
+        self.info[:, 5:] = 0       # the batch entry writes words 0-4 only
         self.lib.silk_host_stereo_batch(
             m, self.table.blob.ctypes.data_as(
                 ctypes.POINTER(ctypes.c_uint8)),

@@ -1,29 +1,39 @@
 """StreamPool: decode many concurrent Ogg/Opus streams with torch.
 
-Port of the CELT transposed ("T-mode") path and the mono SILK path of
-esp32_opus_player_tpu/models/stream_pool.py. The streams fall into
-lanes: one CELT lane per frame size (LM 0-3) and coded channel count
-(the JAX pool's (LM, C) superstep keys), or one SILK lane per internal
-rate (8, 12, 16 kHz), each a device bucket of its streams in row order
-with its own state and its own K-frame window. Per step, for each lane:
+Port of the CELT transposed ("T-mode") path and the SILK and hybrid
+paths of esp32_opus_player_tpu/models/stream_pool.py. The streams fall
+into lanes: one CELT lane per frame size (LM 0-3) and coded channel
+count (the JAX pool's (LM, C) superstep keys), one SILK lane per class
+("silk" or "silk2", internal rate, device frames a packet, frame size),
+or one hybrid lane per ("hybrid" or "hybrid2", frame size), each a
+device bucket of its streams in row order with its own state and its
+own K-frame window. Per step, for each lane:
 
 1. host: the batched native symbol phase over its streams with a packet
-   left (models/host_groups.py, the port's copy);
-2. one packed staging row per stream: int16 for CELT
-   (models/celt_pool_T.py), int32 for SILK (models/silk_pool.py);
+   left (models/host_groups.py, the port's copy; a hybrid lane's CELT
+   half resumes its SILK half's range coder);
+2. one packed staging row per stream (and channel, stereo SILK) and
+   device frame: int16 for CELT (models/celt_pool_T.py), int32 for SILK
+   (models/silk_pool.py); a packet of 40 or 60 ms, or a code-3 packet,
+   is several device frames of the window;
 3. device: one whole-lane frame step, or with superstep_k = K one
    K-frame window run as a unit: one upload, K frame steps, one PCM
-   fetch;
+   fetch (a hybrid lane's: both halves' windows, then their SAT16 mix);
 4. host: the PCM is fetched `pipeline_depth` steps later (the device
    works while the next steps' symbol phases run), trimmed (pre-skip,
    end-trim) and appended per stream.
 
-Supported: CELT-only streams with one frame per packet, channels 1 or
-2: in compat mode (compat_ref=True) 20 ms frames only; in RFC mode
-2.5, 5, 10 and 20 ms frames at any one bandwidth per stream (the end
-band per bandwidth, _ENDBAND_OF_BW); mono SILK-only streams with one 20
-ms frame per packet at a constant bandwidth, channels 1. Both with
-superstep_k >= 1, out_fs 48000, output "host".
+Supported, as the JAX pool batches them: CELT-only streams with one
+frame per packet, channels 1 or 2: in compat mode (compat_ref=True) 20
+ms frames only; in RFC mode 2.5, 5, 10 and 20 ms frames at any one
+bandwidth per stream (the end band per bandwidth, _ENDBAND_OF_BW); SILK
+streams at one internal rate whose coded channels are the pool's (mono
+at channels 1, stereo at channels 2): one 20 ms frame a packet in compat
+mode, 10, 20, 40 and 60 ms payloads and code-3 packets of up to 120 ms
+in RFC mode (stereo 10 ms payloads one a packet); hybrid streams at one
+bandwidth whose coded channels are the pool's, 20 ms (and 10 ms in RFC
+mode) frames one a packet. All with superstep_k >= 1, out_fs 48000,
+output "host"; one batched kind a pool.
 
 Scalar rows, as in the JAX pool: a stream the JAX pool decodes with its
 scalar decoders is classified `("scalar",)` (chained sources, mode or
@@ -36,8 +46,10 @@ multistream source (more than one stream or 2 channels) is `("ms",)`
 and decodes through one OpusMSDecoder (the JAX pool's ms_batch=False
 route). Their PCM is trimmed and appended as a lane's; a lost packet is
 the decoder's own loss path. `path[i]` holds each stream's class:
-("celt", LM, coded channels, end band), ("silk", fs), ("scalar",) or
-("ms",).
+("celt", LM, coded channels, end band), ("silk", fs, dfp, ms, frame_ms)
+or ("silk2", ...) (dfp device frames of frame_ms a packet, ms a frame
+of the packet), ("hybrid", end band, frame_ms) or ("hybrid2", ...),
+("scalar",) or ("ms",).
 
 stats() gives the JAX pool's counters, and _phase_s its per-phase host
 wall time (seconds): host_symbol (the batched symbol phase and, for
@@ -58,14 +70,20 @@ row of decayed band energies and LCG noise through the frame's normal
 decode. A lost SILK packet, as in the JAX pool: in compat mode it
 decodes the normal frame path over an empty bitstream; in RFC mode with
 rfc_plc=True it is concealed on the device (silk_PLC conceal, kernel K8,
-then comfort noise, K9), as a row of the same window frame as the
-step's decoded rows, and the first good frame after a loss run is
-glue-smoothed; with fec, in both modes, the lost frame is decoded from
-the next packet's in-band LBRR copy when that packet has one.
-Every stream the JAX pool batches on a path the port lacks (stereo
-SILK, hybrid, RFC-mode SILK of 10, 40 or 60 ms or code-3 packets), and
-every option the port lacks, raises NotImplementedError naming the
-ROADMAP.md item that brings it.
+then comfort noise, K9), one conceal a device frame of the packet, a
+stereo side only where the previous frame had one, as rows of the same
+window frames as the step's decoded rows, and the first good frame after
+a loss run is glue-smoothed; with fec, in both modes, a lost single-frame
+packet is decoded from the next packet's in-band LBRR copy when that
+packet has one (stereo: a channel the copy lacks is concealed; no copy
+at all, rfc_plc: concealed as silk_Decode conceals at lostFlag 2). A
+lost hybrid packet: compat mode, the SILK state advances over an empty
+bitstream and the frame is muted (the reference's CELT stage fails);
+FEC, the SILK frame alone; rfc_plc, the SILK conceal and CELT's noise
+branch from band 17, mixed. Where the JAX pool and the port's scalar
+decoder differ, the pool follows the scalar decoder (ROADMAP.md section
+C). A pool that mixes batched kinds, and every option the port lacks,
+raises NotImplementedError naming the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -78,18 +96,19 @@ import numpy as np
 import torch
 
 from ..host import opusfile
-from ..host.native import CeltHostState, PlcTrackerState, StateArray
+from ..host.native import CeltHostState
 from ..host.packet import (Mode, get_bandwidth, get_nb_channels,
-                           get_nb_frames, get_samples_per_frame)
+                           get_nb_frames, get_samples_per_frame,
+                           parse_packet)
 from ..ops.celt.math import celt_lcg_rand
 from ..ops.celt.pvq import renormalise_vector
 from ..ops.celt.torch_plc import LPC_ORDER
-from ..ops.celt.torch_synthesis import (DECODE_BUFFER_SIZE, EB, NB_EBANDS,
-                                        OVERLAP, SHORT_MDCT_SIZE)
+from ..ops.celt.torch_synthesis import (DECODE_BUFFER_SIZE, EB, I32,
+                                        NB_EBANDS, OVERLAP, SHORT_MDCT_SIZE)
 from ..utils.device import resolve_device
 from . import host_groups as hg
 from . import silk_pool
-from .batch_silk import LAST_LOST_WORD, NativePlcTracker, good_frames
+from .batch_silk import TrackerArray
 from .celt_pool_T import _CELT_HDR, celt_pool_superstep_T
 from .ms_decoder import OpusMSDecoder
 from .opus_decoder import OpusDecoder
@@ -147,16 +166,35 @@ class _Lane:
         self.masked: list[bool] = []
         self.win = _Window(self)
 
-    def stage(self, sel, info=None):
-        """Write this step's staging frame (rows `sel` take part, the
-        rest are inactive; `info` is the lane's own per-step data) and
-        dispatch the window once it holds K frames. `fill` says whether
-        the frame has inactive rows (it is masked). Returns (window,
-        frame index) of the frame."""
+    def decode(self, pos, active):
+        """The batched symbol phase of packet pos[r] of every active row;
+        returns the rows decoded."""
+        return self.group.decode(pos, active)
+
+    def host_step(self, pos, ok, lost, fec):
+        """The host work of one step after the symbol phase (`ok`: the rows
+        decoded; `lost`: the rows whose packet was lost; `fec`: those of
+        them that may take the next packet's LBRR copy). Returns (sel,
+        infos, n_fec): the rows that take part in the step's frames, one
+        `fill` info per device frame of the step, and the number of lost
+        rows the LBRR copy recovered. Here: no loss handling."""
+        return np.nonzero(ok)[0], [None], 0
+
+    def put(self, sel, info=None) -> int:
+        """Write the next staging frame (rows `sel` take part, the rest
+        are inactive; `info` is the lane's own per-frame data). `fill`
+        says whether the frame has inactive rows (it is masked). Returns
+        the frame's index in the window."""
         if not self.masked and self.stg_free is not None:
             self.stg_free.synchronize()
-        win, k = self.win, len(self.masked)
+        k = len(self.masked)
         self.masked.append(self.fill(self.stg_np[k], sel, info))
+        return k
+
+    def stage(self, sel, info=None):
+        """`put` a frame and dispatch the window once it holds K frames.
+        Returns (window, frame index) of the frame."""
+        win, k = self.win, self.put(sel, info)
         if len(self.masked) == self.pool._ss_k:
             self.dispatch()
         return win, k
@@ -254,14 +292,17 @@ def _lcg_tables(n: int):
 _LCG = _lcg_tables(2 * 960)
 
 
-def celt_noise_rows(sts, cnts, ends, CC: int, N: int, LM: int):
+def celt_noise_rows(sts, cnts, ends, CC: int, N: int, LM: int,
+                    start: int = 0):
     """libopus celt_decode_lost's noise branch for R streams of one lane
-    (the JAX pool's _celt_noise_si, start band 0): decay each host
-    state's oldBandE toward backgroundLogE (1.5 dB on a first conceal,
-    then 0.5 dB), fill bands 0..end of each of the CC channels with LCG
-    noise from the state's rng, in order, renormalised band by band, and
-    advance the rng. sts: the CeltHostStates; cnts: their conceals since
-    the last good frame; ends: their end bands. The frame then runs
+    (the JAX pool's _celt_noise_si): decay each host state's oldBandE
+    over bands start..end toward backgroundLogE (1.5 dB on a first
+    conceal, then 0.5 dB), fill bands start..end of each of the CC
+    channels with LCG noise from the state's rng, in order, renormalised
+    band by band, and advance the rng. start is 0 for a CELT stream and
+    17 for the high band of a hybrid one (libopus takes this branch
+    whenever start != 0). sts: the CeltHostStates; cnts: their conceals
+    since the last good frame; ends: their end bands. The frame then runs
     through the normal synthesis with C = CC and no comb filter
     (_NO_COMB). Returns (X (R, CC * N) int16, bandE (R, 42) int16)."""
     R = len(sts)
@@ -274,16 +315,17 @@ def celt_noise_rows(sts, cnts, ends, CC: int, N: int, LM: int):
         old = np.ctypeslib.as_array(st.oldBandE)
         bg = np.ctypeslib.as_array(st.backgroundLogE)
         for c in range(CC):
-            band = slice(c * NB_EBANDS, c * NB_EBANDS + end)
+            band = slice(c * NB_EBANDS + start, c * NB_EBANDS + end)
             old[band] = np.maximum(bg[band], old[band].astype(np.int32)
                                    - (1536 if cnt == 0 else 512))
-        M = int(EB[end]) << LM               # draws a channel
+        lo = int(EB[start]) << LM
+        M = max(0, (int(EB[end]) << LM) - lo)     # draws a channel
         seeds = (A[1:CC * M + 1] * np.uint64(st.rng)
                  + B[1:CC * M + 1]) & np.uint64(0xFFFFFFFF)
         if seeds.size:
             st.rng = int(seeds[-1])
-        X[r, :, :M] = (seeds.astype(np.uint32).view(np.int32)
-                       >> 20).reshape(CC, M)
+        X[r, :, lo:lo + M] = (seeds.astype(np.uint32).view(np.int32)
+                              >> 20).reshape(CC, M)
         bandE[r] = old
     # renormalise band by band, the bands of one width together (a band
     # past a row's end band is zero and stays so)
@@ -309,10 +351,11 @@ class _CeltLane(_Lane):
 
     kind = "celt"
 
-    def __init__(self, pool, LM: int, C: int, idxs, ends):
+    def __init__(self, pool, LM: int, C: int, idxs, ends, start: int = 0):
         self.LM, self.N = LM, SHORT_MDCT_SIZE << LM
+        self.start = start
         g = hg.CeltGroup(idxs, [pool.streams[i].jobs for i in idxs], self.N,
-                         pool.channels, 0, ends, C=C)
+                         pool.channels, start, ends, C=C)
         self.C = g.C
         super().__init__(pool, g, idxs,
                          _CELT_HDR + 2 * NB_EBANDS + g.C * self.N,
@@ -345,26 +388,34 @@ class _CeltLane(_Lane):
                 pool._cuda, rows=(torch.int64, None), stg=(
                     torch.int16, _CELT_HDR + 2 * NB_EBANDS + CC * self.N))
 
-    def host_step(self, ok, lost):
+    def host_step(self, pos, ok, lost, fec):
+        if not self.plc:
+            return np.nonzero(ok)[0], [None], 0
+        sel, info = self.conceal_step(ok, lost)
+        return sel, [info], 0
+
+    def conceal_step(self, ok, lost):
         """The conceal bookkeeping of one step after the batched symbol
         decode of the good rows `ok` (the JAX pool's, stream_pool.py:
         2187-2198 and 2438-2455): every good row sets its skip flag if it
         ends a loss run and clears it otherwise; each row in `lost` takes
-        the noise branch after 5 conceals, while its skip flag is set, or
-        in a frame shorter than 20 ms, and the pitch branch otherwise.
+        the noise branch after 5 conceals, while its skip flag is set, in
+        a frame shorter than 20 ms or in a hybrid stream's high band
+        (start 17), and the pitch branch otherwise.
         Returns (sel, info): every decoded or concealed row, and for
         `fill` the decoded rows, the noise rows with their staging
         contents and the pitch rows with their first-conceal flags."""
         good, gone = np.nonzero(ok)[0], np.nonzero(lost)[0]
         self.skip[good] = self.loss_cnt[good] > 0
         self.loss_cnt[good] = 0
-        noisy = (self.loss_cnt[gone] >= 5) | self.skip[gone] | (self.N != 960)
+        noisy = (self.loss_cnt[gone] >= 5) | self.skip[gone] | (
+            self.N != 960) | (self.start != 0)
         pitch, noise = gone[~noisy], gone[noisy]
         g = self.group
         X, bandE = celt_noise_rows(
             [g.states[r] for r in noise.tolist()], self.loss_cnt[noise],
             np.minimum(g.ends[noise], NB_EBANDS), self.pool.channels, self.N,
-            self.LM)
+            self.LM, self.start)
         first = ~self.prev_pitch[pitch]
         self.loss_cnt[gone] += 1
         self.native_cnt[gone] = self.loss_cnt[gone]
@@ -395,6 +446,7 @@ class _CeltLane(_Lane):
             nstg, active = np.zeros((noise.size, self.noise_rows.np[
                 "stg"].shape[1]), dtype=np.int16), rows.size
             at = np.arange(noise.size)
+        nstg[at, 3] = self.start
         nstg[at, 4] = np.minimum(g.ends[noise], NB_EBANDS)
         nstg[at, 5:17] = _NO_COMB
         nstg[at, 17] = 1
@@ -422,108 +474,263 @@ class _CeltLane(_Lane):
             CC=self.pool.channels, masked=masked, pitch=st.get("plc_pitch"),
             lpc=st.get("plc_lpc"), conceal=aux)
 
-    @staticmethod
-    def frames(frame, sel):
+    def frames(self, frame, sel):
         """Frame (CC, N, n) -> (len(sel), N, CC)."""
         return frame[:, :, sel].transpose(2, 1, 0)
 
 
 class _SilkLane(_Lane):
-    """Mono SILK streams at one internal rate fs, 20 ms frames
-    (models/silk_pool.py). In a pool that conceals (rfc_plc) every row
-    has a PLC tracker, the staging rows carry the conceal columns, and
-    the frame-sized conceal inputs of the window's lost rows collect
-    compact in `conceal` (`cx`: rand then cng_exc per lost row, `pos`:
-    its bucket row)."""
+    """The SILK streams of one class ("silk", fs, dfp, ms, frame_ms) or
+    ("silk2", ...) (models/silk_pool.py): mono or stereo, internal rate
+    fs, device frames of frame_ms (nb = 2 or 4 subframes), `dfp` device
+    frames a packet (40/60 ms payloads and code-3 packets), each a frame
+    of the K-frame window. The symbol phase of single-frame packets (and
+    mono 40/60 ms ones) is the group's batch entry; code-3 packets and
+    stereo multi-frame packets decode a row at a time through the
+    group's per-stream hosts, as the JAX pool's _host_one does. The
+    device frames' symbols sit in `fb`, one set of group-shaped buffers
+    each (mono: _SilkBuffers; stereo: mid, side and the stereo info).
 
-    NB = 4
+    In a pool that conceals (rfc_plc) every row and channel has a PLC
+    tracker, the staging rows carry the conceal columns, and the frame-
+    sized conceal inputs of the window's lost rows collect compact in
+    `conceal` (`cx`: rand then cng_exc per lost channel row, `pos`: its
+    bucket row). As the sub-lane of a hybrid lane (hybrid=True, fs 16) it
+    is the SILK half of a hybrid stream."""
+
     kind = "silk"
 
-    def __init__(self, pool, fs: int, idxs):
-        g = hg.SilkGroup(idxs, [pool.streams[i].jobs for i in idxs], fs, 20)
-        self.fs = fs
+    def __init__(self, pool, idxs, fs: int, dfp: int = 1, ms: int = 20,
+                 frame_ms: int = 20, stereo: bool = False,
+                 hybrid: bool = False):
+        jobs = [pool.streams[i].jobs for i in idxs]
+        self.fs, self.dfp, self.ms, self.stereo = fs, dfp, ms, stereo
+        self.nb = frame_ms // 5
+        self.frame_ms, self.hybrid = frame_ms, hybrid
         self.order = 16 if fs == 16 else 10
-        self.frame = self.NB * 5 * fs
+        self.frame = self.nb * 5 * fs
+        self.N = 48 * frame_ms
         self.plc = pool.rfc_plc
-        self.dummy = silk_pool.dummy_row(fs, self.NB, self.plc)
-        super().__init__(pool, g, idxs,
-                         silk_pool.stage_width(self.frame, self.NB, self.plc),
+        if stereo:
+            g = hg.SilkStereoGroup(idxs, jobs, fs, hybrid=hybrid,
+                                   frame_ms=frame_ms)
+        else:
+            g = hg.SilkGroup(idxs, jobs, fs, ms, hybrid=hybrid)
+        # one frame a packet (mono: one payload of 1-3 internal frames)
+        one = dfp // max(1, ms // 20) == 1
+        self.batched = one and (not stereo or dfp == 1)
+        n = len(idxs)
+        if self.batched and dfp == 1:
+            self.fb = [(g.mid, g.side, g.info) if stereo else g.buf]
+        else:
+            mk = lambda: hg._SilkBuffers(n, self.frame)
+            self.fb = [(mk(), mk(), np.zeros((n, 8), dtype=np.int32))
+                       if stereo else mk() for _ in range(dfp)]
+        self.width1 = silk_pool.stage_width(self.frame, self.nb, self.plc,
+                                            stereo)
+        self.dummy = silk_pool.dummy_row(fs, self.nb, self.plc, stereo)
+        super().__init__(pool, g, idxs, self.width1 * (2 if stereo else 1),
                          torch.int32)
-        self.state = silk_pool.make_bucket(self.n, fs, pool.device)
-        self.bucket = ("silk", fs, 20, 1, self.n)
+        self.state = silk_pool.make_bucket(self.n, fs, pool.device, stereo)
+        self.bucket = ("silk2" if stereo else "silk", fs, frame_ms, dfp,
+                       self.n)
         self.glue: list[bool] = []
         if self.plc:
-            self.trk_states = StateArray(self.n, PlcTrackerState)
-            self.trackers = [NativePlcTracker(fs, 20, st=v)
-                             for v in self.trk_states.views]
-            self.last_lost = self.trk_states.buf.view(np.int32)[
-                :, LAST_LOST_WORD]
+            self.trk = [TrackerArray(n, fs, frame_ms)
+                        for _ in range(2 if stereo else 1)]
+            # each stream's predictors of its last good frame: a
+            # concealed frame unmixes with them (silk_Decode's lost
+            # branch keeps sStereo.pred)
+            self.last_pred = np.zeros((n, 2), dtype=np.int32)
             self.conceal = _Pinned(pool._cuda, pos=(torch.int64, None),
                                    cx=(torch.int32, 2 * self.frame))
 
+    def decode(self, pos, active):
+        g = self.group
+        if self.batched:
+            ok = g.decode(pos, active)
+            if self.dfp > 1:      # a mono 40/60 ms payload's frames
+                F, b = self.frame, g.buf
+                for j, fb in enumerate(self.fb):
+                    fb.exc[:] = b.exc[:, j * F:(j + 1) * F]
+                    for name, _ in hg._SILK_COL_SPECS:
+                        getattr(fb, name)[:] = getattr(b, name)[:, j]
+            return ok
+        ok = g.table.row_args(pos, active)[2]
+        for r in np.nonzero(ok)[0].tolist():
+            frames = parse_packet(self.pool.streams[self.idxs[r]].jobs[
+                int(pos[r])].data).frames
+            h = g.hosts[r]
+            if self.stereo:
+                sps = [sp for fr in frames
+                       for sp in h.packet_multi(fr, self.fs, self.ms)]
+                for (mid, side, info), sp in zip(self.fb, sps):
+                    hg.put_stereo(mid, side, info, r, sp)
+            else:
+                ps = [p for fr in frames
+                      for p in h.packet(fr, self.fs, self.ms)]
+                for fb, p in zip(self.fb, ps):
+                    hg.put_row(fb, r, p)
+        return ok
+
+    def _put_frame(self, r: int, p) -> None:
+        """A lost row's single frame, recovered or decoded from an empty
+        bitstream, into the first device frame's buffers."""
+        if self.stereo:
+            hg.put_stereo(*self.fb[0], r, p)
+        else:
+            hg.put_row(self.fb[0], r, p)
+
+    def _good(self, rows) -> None:
+        """Ingest the decoded rows of each device frame, in order, into
+        their trackers: the post-loss transition on the buffers in place,
+        then the tracker update; stereo: the side's partial reset where
+        the side comes back, the side only where the frame has one, and
+        the frame's predictors kept (the JAX pool's _track_stereo_good)."""
+        for fb in self.fb:
+            if not self.stereo:
+                self.trk[0].good(rows, fb)
+                continue
+            mid, side, info = fb
+            self.trk[1].side_reset(rows[info[rows, 1] != 0])
+            mrows = rows[info[rows, 6] == 0]
+            self.trk[0].good(mrows, mid)
+            self.trk[1].good(rows[info[rows, 0] != 0], side)
+            self.last_pred[mrows] = info[mrows, 3:5]
+
     def host_step(self, pos, ok, lost, fec):
-        """The host work of one step after the batched symbol decode of
-        the good rows (`ok`): recover or prepare the rows in `lost` (fec:
-        the rows among them that may take the next packet's LBRR copy;
-        pos: every row's packet index). Returns (sel, info, n_fec): the
-        rows that take part in the frame, for `fill` the conceal preps by
-        row and the glue flags of the decoded rows, and the number of
-        lost rows the LBRR copy recovered."""
-        g, pool = self.group, self.pool
+        sel, infos, fec_rows, _, _ = self.loss_step(pos, ok, lost, fec)
+        return sel, infos, len(fec_rows)
+
+    def loss_step(self, pos, ok, lost, fec):
+        """After the batched symbol decode of the good rows (`ok`):
+        recover or prepare the rows in `lost` (fec: the rows among them
+        that may take the next packet's LBRR copy, single-frame packets
+        only; pos: every row's packet index), as the JAX pool's
+        _host_one_lost. Returns (sel, infos, fec_rows, silk_only, mute):
+        the rows that take part in the frames, for `fill` per device
+        frame j (j, the decoded rows, their conceal preps by row, the
+        glue flags of the decoded rows), the rows the LBRR copy
+        recovered, the rows asked of an LBRR copy in all (a hybrid
+        stream's output is then the SILK frame alone) and the
+        compat-mode rows of a hybrid stream whose output is muted."""
+        g, pool, fs = self.group, self.pool, self.fs
         decoded = ok.copy()
-        preps = {}
-        n_fec = 0
+        preps = [{} for _ in range(self.dfp)]
+        fec_rows, silk_only, mute = [], [], []
+        # the glue flags (a channel's last frame was concealed), taken
+        # before this step's conceals set them anew
+        glue = np.stack([t.take_glue(np.arange(self.n)) for t in self.trk],
+                        axis=1) if self.plc else None
         for r in np.nonzero(lost)[0].tolist():
-            p = None
-            if fec[r] and pos[r] + 1 < g.table.n_packets[r]:
+            h, p = g.hosts[r], None
+            want_fec = bool(fec[r]) and self.dfp == 1 and \
+                pos[r] + 1 < g.table.n_packets[r]
+            if want_fec:
                 # the LBRR copy in the NEXT packet, which stays unread
-                p = g.hosts[r].fec_frame(g.frame0(r, int(pos[r]) + 1),
-                                         self.fs, 20)
-                n_fec += p is not None
+                nxt = g.table.frame0(r, int(pos[r]) + 1)
+                p = h.fec_packet(nxt, fs, payload_ms=self.frame_ms) \
+                    if self.stereo else h.fec_frame(nxt, fs, self.frame_ms)
+                if p is not None:
+                    fec_rows.append(r)
+                    silk_only.append(r)
             if p is None and pool.compat_ref:
-                # compat: the normal frame path over an empty bitstream
-                p = g.hosts[r].frame(b"", self.fs)
+                # compat: the normal frame over an empty bitstream (a
+                # hybrid stream's CELT stage then fails: muted)
+                p = h.packet(b"", fs) if self.stereo else \
+                    h.frame(b"", fs, hybrid=self.hybrid)
+                if self.hybrid:
+                    mute.append(r)
             if p is not None:
-                g.put_row(r, p)
+                self._put_frame(r, p)
                 decoded[r] = True
+                if self.plc and self.stereo and p.get("side_conceal"):
+                    # the LBRR copy has the mid only: the side conceals
+                    preps[0][r] = (None, self.trk[1].prep(r), False)
+                elif self.plc and self.stereo and p.get("mid_conceal"):
+                    # the side only: the mid conceals
+                    preps[0][r] = (self.trk[0].prep(r), None, False)
             elif self.plc:
-                preps[r] = self.trackers[r].conceal_prep()
-                g.hosts[r].st.LastGainIndex = 10   # silk_Decode on loss
+                # one conceal per device frame, the loss count deepening;
+                # a stereo side only where the previous frame had one
+                side = self.stereo and not h.prev_dom
+                # an FEC decode whose packet has no LBRR copy conceals as
+                # silk_Decode at lostFlag 2 does: the gain index stays and
+                # the frame is not mid-only, so a side the previous frame
+                # lacked resets now (:378); a hybrid stream's output is
+                # the SILK frame alone (the scalar decoder's decode_fec)
+                reset = want_fec and self.stereo and bool(h.prev_dom)
+                for pj in preps:
+                    pj[r] = (self.trk[0].prep(r),
+                             self.trk[1].prep(r) if side else None, reset)
+                if want_fec:
+                    silk_only.append(r)
+                    if reset:
+                        self.trk[1].side_reset([r])
+                        st1 = h.st[1]
+                        st1.lagPrev, st1.LastGainIndex = 100, 10
+                        st1.prevSignalType = 0
+                        st1.first_frame_after_reset = 1
+                    if self.stereo:
+                        h.prev_dom = 0
+                else:
+                    for st in (h.st if self.stereo else (h.st,)):
+                        st.LastGainIndex = 10     # silk_Decode on loss
             else:
                 raise NotImplementedError(
                     "a lost SILK packet in RFC mode needs rfc_plc=True")
         rows = np.nonzero(decoded)[0]
-        glue = None
         if self.plc:
-            # the post-loss transition (on the group buffers, in place)
-            # and the tracker update of every decoded or FEC row
-            good_frames(self.trk_states, rows, g.buf)
-            glue = self.last_lost[rows]
-            self.last_lost[rows] = 0
-        return np.nonzero(decoded | lost)[0], (rows, preps, glue), n_fec
+            self._good(rows)
+            glue = glue[rows]
+        infos = [(j, rows, preps[j], glue if j == 0 else None)
+                 for j in range(self.dfp)]
+        return (np.nonzero(decoded | lost)[0], infos, fec_rows, silk_only,
+                mute)
 
     def fill(self, stg, sel, info=None) -> bool:
-        b, F = self.group.buf, self.frame
-        rows, preps, glue = info if info is not None else (sel, {}, None)
-        p = F + 32 + 5 * self.NB
-        stg[:] = self.dummy
-        stg[rows, :F] = b.exc[rows]
-        stg[rows, F:F + 32] = b.A[rows].reshape(-1, 32)
-        stg[rows, F + 32:p] = b.B[rows].reshape(-1, 5 * self.NB)
-        for j, col in enumerate((b.gains, b.inv, b.lag, b.adj)):
-            stg[rows, p + 4 * j:p + 4 * j + 4] = col[rows]
-        stg[rows, p + 16:p + 28] = b.flags[rows]  # voiced, rewhiten, match
-        stg[sel, -1] = 1                          # active
+        j, rows, preps, glue = info if info is not None else (0, sel, {},
+                                                              None)
+        F, nb, W = self.frame, self.nb, self.width1
+        s = stg.reshape(self.n, 2, W) if self.stereo else stg
+        s[:] = self.dummy
+        if self.stereo:
+            mid, side, inf = self.fb[j]
+            silk_pool.decode_cols(s[:, 0], rows[inf[rows, 6] == 0], mid, F,
+                                  nb)
+            srows = rows[inf[rows, 0] != 0]
+            silk_pool.decode_cols(s[:, 1], srows, side, F, nb)
+            s[:, 0, -5] = 1                           # has_ch: mid
+            s[srows, 1, -5] = 1                       # has_ch: side
+            s[rows, 1, -4] = inf[rows, 1]             # side_reset
+            s[rows, 0, -3:-1] = inf[rows, 3:5]        # pred
+        else:
+            silk_pool.decode_cols(s, rows, self.fb[j], F, nb)
+        s[sel, ..., -1] = 1                           # active
         if not self.plc:
             return sel.size < self.n
-        q = p + 7 * self.NB
-        stg[rows, q] = glue
-        self.glue.append(bool(glue.any()))
-        for r, prep in preps.items():
-            stg[r, q:q + silk_pool.PLC_COLS] = silk_pool.conceal_cols(prep)
-        self.conceal.add(pos=list(preps), cx=np.reshape(
-            [np.concatenate([v["rand"], v["cng_exc"]]) for v in
-             preps.values()], (len(preps), 2 * F)))
+        q = silk_pool._decode_width(F, nb)
+        if glue is not None:
+            if self.stereo:
+                s[rows, :, q] = glue
+            else:
+                s[rows, q] = glue[:, 0]
+        self.glue.append(glue is not None and bool(glue.any()))
+        pos, cx = [], []
+        for r, (m, sd, reset) in preps.items():
+            for c, prep in enumerate((m, sd)):
+                if prep is None:
+                    continue
+                row = s[r, c] if self.stereo else s[r]
+                row[q:q + silk_pool.PLC_COLS] = silk_pool.conceal_cols(prep)
+                if self.stereo:
+                    row[-5] = 1                       # has_ch
+                pos.append(2 * r + c if self.stereo else r)
+                cx.append(np.concatenate([prep["rand"], prep["cng_exc"]]))
+            if self.stereo and m is not None:
+                s[r, 0, -3:-1] = self.last_pred[r]
+                s[r, 1, -4] |= reset                  # side_reset
+        self.conceal.add(pos=pos, cx=np.reshape(cx, (len(pos), 2 * F)))
         return sel.size < self.n
 
     def upload_aux(self):
@@ -534,14 +741,112 @@ class _SilkLane(_Lane):
 
     def run(self, stgK, masked, aux=None):
         glue, self.glue = self.glue, []
-        return silk_pool.silk_pool_superstep(
-            self.state, stgK, fs=self.fs, nb=self.NB, order=self.order,
-            masked=masked, glue=glue, conceal=aux)
+        if not self.stereo:
+            return silk_pool.silk_pool_superstep(
+                self.state, stgK, fs=self.fs, nb=self.nb, order=self.order,
+                masked=masked, glue=glue, conceal=aux)
+        pcmK = silk_pool.silk_pool_superstep(
+            self.state, stgK.view(stgK.shape[0], self.n, 2, self.width1),
+            fs=self.fs, nb=self.nb, order=self.order, masked=masked,
+            glue=glue, conceal=aux, stereo=True)
+        # (K, n, L48, 2): L and R interleaved, as a stream's PCM is, so
+        # the host takes each stream's rows as they are
+        return pcmK.transpose(2, 3)
 
-    @staticmethod
-    def frames(frame, sel):
-        """Frame (n, L48) -> (len(sel), L48, 1)."""
+    def frames(self, frame, sel):
+        """Frame (n, L48) or, stereo, (n, L48, 2) -> (len(sel), L48,
+        channels)."""
+        if self.stereo:
+            return frame[sel]
         return frame[sel][:, :, None]
+
+
+def hybrid_mix(pcm_c, pcm_s, mode):
+    """The hybrid output of a window (the JAX pool's _hybrid_mix_step, the
+    reference's mix src/opus_decoder.cpp:272), on the device: the CELT
+    high band pcm_c (K, CC, N, n) and the SILK part pcm_s, (K, n, N) mono
+    (added to every channel) or (K, n, N, 2), summed and saturated to
+    int16. mode (K, n): 0 mixes, 1 keeps the SILK part alone (an FEC
+    frame has no CELT layer), 2 mutes (a compat-mode lost frame, whose
+    CELT stage fails). Returns (K, n, N, CC) int16."""
+    c = pcm_c.permute(0, 3, 2, 1).to(I32)
+    s = pcm_s[..., None] if pcm_s.dim() == 3 else pcm_s
+    m = mode[:, :, None, None]
+    out = (torch.where(m == 0, c, 0) + s).clamp_(-32768, 32767)
+    return torch.where(m == 2, 0, out).to(torch.int16)
+
+
+class _HybridLane(_Lane):
+    """The hybrid streams of one class ("hybrid", end, frame_ms) or
+    ("hybrid2", ...), any end band a stream: a SILK sub-lane at 16 kHz
+    (mono or stereo, hybrid=True) and a CELT sub-lane from band 17 at LM
+    3 (20 ms) or 2 (10 ms) whose symbol phase resumes the SILK group's
+    range coder (the JAX pool's _hybrid1/2_pool_superstep). Each sub-lane
+    stages its own rows and runs its own K-frame window; the lane's own
+    staging is each row's mix mode, and its window ends with one
+    `hybrid_mix` of both windows' PCM on the device, so a window is one
+    fetch of the mixed PCM. A lost frame: compat mode, the SILK state
+    advances over an empty bitstream and the output is muted, CELT left
+    as it is; FEC, the SILK frame alone; rfc_plc, the SILK conceal plus
+    CELT's noise branch from band 17, mixed."""
+
+    kind = "hybrid"
+
+    def __init__(self, pool, idxs, frame_ms: int, stereo: bool):
+        self.silk = _SilkLane(pool, idxs, 16, 1, frame_ms, frame_ms,
+                              stereo=stereo, hybrid=True)
+        self.celt = _CeltLane(pool, 3 if frame_ms == 20 else 2,
+                              2 if stereo else 1, idxs,
+                              [pool.path[i][1] for i in idxs], start=17)
+        super().__init__(pool, self.silk.group, idxs, 1, torch.int8)
+        self.N = 48 * frame_ms
+        self.bucket = ("hybrid2" if stereo else "hybrid", frame_ms, self.n)
+
+    def decode(self, pos, active):
+        ok = self.silk.decode(pos, active)
+        self.celt.group.decode(pos, ok, ec_in=self.silk.group.ec)
+        return ok
+
+    def host_step(self, pos, ok, lost, fec):
+        sel, infos, fec_rows, silk_only, mute = self.silk.loss_step(
+            pos, ok, lost, fec)
+        conceal = lost.copy()
+        conceal[silk_only + mute] = False
+        if self.celt.plc:
+            csel, cinfo = self.celt.conceal_step(ok, conceal)
+        else:
+            csel, cinfo = np.nonzero(ok)[0], None
+        mode = np.zeros(self.n, dtype=np.int8)
+        mode[silk_only] = 1
+        mode[mute] = 2
+        return sel, [(sel, infos[0], csel, cinfo, mode)], len(fec_rows)
+
+    def fill(self, stg, sel, info=None) -> bool:
+        if info is None:
+            info = (sel, None, sel, None, np.zeros(self.n, dtype=np.int8))
+        ssel, sinfo, csel, cinfo, mode = info
+        self.silk.put(ssel, sinfo)
+        self.celt.put(csel, cinfo)
+        stg[:, 0] = mode
+        return sel.size < self.n
+
+    def upload_aux(self):
+        dev, K = self.pool.device, len(self.masked)
+        return (self.silk.stg[:K].to(dev, non_blocking=True),
+                self.silk.upload_aux(),
+                self.celt.stg[:K].to(dev, non_blocking=True),
+                self.celt.upload_aux())
+
+    def run(self, stgK, masked, aux=None):
+        s_stg, s_aux, c_stg, c_aux = aux
+        pcm_s = self.silk.run(s_stg, self.silk.masked, s_aux)
+        pcm_c = self.celt.run(c_stg, self.celt.masked, c_aux)
+        self.silk.masked, self.celt.masked = [], []
+        return hybrid_mix(pcm_c, pcm_s, stgK[..., 0])
+
+    def frames(self, frame, sel):
+        """Frame (n, N, CC) -> (len(sel), N, CC)."""
+        return frame[sel]
 
 
 class StreamPool:
@@ -587,19 +892,26 @@ class StreamPool:
         self._ss_k = int(superstep_k)
         self.positions = np.zeros(self.n, dtype=np.int64)
         self.pcm_out = [[] for _ in range(self.n)]
-        # one lane per CELT (LM, coded channels) or SILK rate, streams in
-        # index order
+        # one lane per CELT (LM, coded channels), per SILK class or per
+        # hybrid frame size, streams in index order (a CELT or hybrid
+        # stream's end band is its row's own)
         by_key = collections.defaultdict(list)
         for i, k in enumerate(self.path):
             if k[0] in batched:
-                by_key[k[:-1] if k[0] == "celt" else k].append(i)
-        if batched == {"celt"}:
-            self._lanes = [_CeltLane(self, LM, C, idxs,
-                                     [self.path[i][-1] for i in idxs])
-                           for (_, LM, C), idxs in sorted(by_key.items())]
-        else:
-            self._lanes = [_SilkLane(self, fs, idxs)
-                           for (_, fs), idxs in sorted(by_key.items())]
+                by_key[k[:-1] if k[0] == "celt" else k[:1] + k[2:]
+                       if k[0] in ("hybrid", "hybrid2") else k].append(i)
+        self._lanes = []
+        for key, idxs in sorted(by_key.items()):
+            if key[0] == "celt":
+                lane = _CeltLane(self, key[1], key[2], idxs,
+                                 [self.path[i][-1] for i in idxs])
+            elif key[0] in ("silk", "silk2"):
+                lane = _SilkLane(self, idxs, *key[1:],
+                                 stereo=key[0] == "silk2")
+            else:
+                lane = _HybridLane(self, idxs, key[1],
+                                   stereo=key[0] == "hybrid2")
+            self._lanes.append(lane)
         # scalar and multistream rows: one host decoder each, made at its
         # stream's first packet and anew at each chain link
         self._scalar_rows = [i for i, k in enumerate(self.path)
@@ -630,10 +942,10 @@ class StreamPool:
 
     @property
     def silk_buckets(self) -> dict:
-        """The SILK lanes' states by internal rate (the JAX pool's
+        """The mono SILK lanes' states by internal rate (the JAX pool's
         silk_buckets; rows are the lane's streams in index order)."""
         return {lane.fs: lane.state for lane in self._lanes
-                if isinstance(lane, _SilkLane)}
+                if isinstance(lane, _SilkLane) and not lane.stereo}
 
     @staticmethod
     def _parse(s, parsed: dict):
@@ -652,8 +964,11 @@ class StreamPool:
         """The stream's class, as the JAX pool's classification gives it
         (stream_pool.py:1284-1396 of the JAX package): ("ms",) for a
         multistream source, ("scalar",) for one its scalar decoders take,
-        ("celt", LM, coded channels, end band) or ("silk", fs) for the
-        lanes; raises for the batched kinds the port lacks."""
+        and for the lanes ("celt", LM, coded channels, end band), ("silk",
+        fs, dfp, ms, frame_ms) or ("silk2", ...) (dfp device frames of
+        frame_ms a packet, ms a frame of the packet), ("hybrid", end band,
+        frame_ms) or ("hybrid2", ...); the CELT tuple keys by (LM, C)
+        where the JAX pool's is ("celt", spf, end band)."""
         head = s.head
         if head is not None and (head.stream_count > 1
                                  or head.channel_count > 2):
@@ -685,35 +1000,39 @@ class StreamPool:
                 end = 21 if compat else _ENDBAND_OF_BW[next(iter(bws))]
                 return ("celt", _LM_OF_SPF[spf], sch, end)
             return ("scalar",)
+        # SILK: compat mode decodes one 20 ms frame a packet; RFC mode 10,
+        # 20, 40 and 60 ms payloads and code-3 packets of up to 120 ms
+        # (stereo: 10 ms payloads one a packet); frame_ms is a device
+        # frame's duration (10 for nb_subfr 2 payloads, else 20)
+        frame_ms = 10 if spf == 480 else 20
         if mode == Mode.SILK_ONLY:
-            if len(fss) != 1:
+            if len(fss) != 1 or sch != ch:
                 return ("scalar",)             # SILK bandwidth switches
-            if sch == 1 and ch == 1:
-                if spf == 960 and nfr == 1:
-                    return ("silk", next(iter(fss)))
-                if not compat and spf in (480, 960, 1920, 2880) \
-                        and spf * nfr <= 5760:
-                    raise _todo(f"stream {i}: RFC-mode SILK packets of 10, "
-                                f"40 or 60 ms or several frames", "12b")
-            if sch == 2 and ch == 2 and (
-                    (spf == 960 and nfr == 1) if compat else
+            if sch == 1:
+                ok = (spf == 960 and nfr == 1) if compat else (
+                    spf in (480, 960, 1920, 2880) and spf * nfr <= 5760)
+            else:
+                ok = (spf == 960 and nfr == 1) if compat else (
                     (spf in (960, 1920, 2880) and spf * nfr <= 5760)
-                    or (spf == 480 and nfr == 1)):
-                raise _todo(f"stream {i}: stereo SILK", "10")
-            return ("scalar",)
+                    or (spf == 480 and nfr == 1))
+            if not ok:
+                return ("scalar",)
+            return ("silk" if sch == 1 else "silk2", next(iter(fss)),
+                    nfr * max(1, spf // 960), spf // 48, frame_ms)
         spf_ok = spf == 960 if compat else spf in (480, 960)
         if spf_ok and nfr == 1 and sch == ch and one_bw:
-            raise _todo(f"stream {i}: hybrid", "11")
+            end = 21 if compat else _ENDBAND_OF_BW[next(iter(bws))]
+            return ("hybrid" if sch == 1 else "hybrid2", end, frame_ms)
         return ("scalar",)
 
     # ------------------------------------------------------------ steps
     def step(self, lost=None, fec=None) -> bool:
-        """Decode one frame of every stream with a packet left. lost:
+        """Decode one packet of every stream with a packet left. lost:
         stream indices whose next packet was lost in transit: it is
         consumed but not decoded. A lost CELT packet gives silence and
         leaves the stream's state untouched, or is concealed (rfc_plc); a
-        lost SILK packet is decoded over an empty bitstream (compat mode)
-        or concealed (rfc_plc). fec: the subset of lost whose frame the NEXT packet's
+        lost SILK or hybrid packet is decoded over an empty bitstream
+        (compat mode) or concealed (rfc_plc). fec: the subset of lost whose frame the NEXT packet's
         in-band SILK LBRR copy should reconstruct when it has one (that
         packet stays unread: the next step decodes it). Returns False
         once every stream is exhausted."""
@@ -730,30 +1049,28 @@ class StreamPool:
                 continue
             gone = live & lost[idxs]
             active = live & ~gone
-            ok = g.decode(pos, active) if active.any() else active
-            sel, info = np.nonzero(ok)[0], None
-            st["bytes_in"] += int(g.table.pkt_bytes[sel, pos[sel]].sum())
-            if isinstance(lane, _SilkLane) and (lane.plc or gone.any()):
-                sel, info, n_fec = lane.host_step(pos, ok, gone, fec[idxs])
-                st["frames_fec"] += n_fec
-                gone[sel] = False
-            elif isinstance(lane, _CeltLane) and lane.plc:
-                sel, info = lane.host_step(ok, gone)
-                gone[sel] = False
+            ok = lane.decode(pos, active) if active.any() else active
+            dec = np.nonzero(ok)[0]
+            st["bytes_in"] += int(g.table.pkt_bytes[dec, pos[dec]].sum())
+            sel, infos, n_fec = lane.host_step(pos, ok, gone, fec[idxs])
+            st["frames_fec"] += n_fec
+            gone[sel] = False
             rows = np.nonzero(live)[0]
             st["frames"] += rows.size
             st[f"frames_{lane.kind}"] += rows.size
             st["frames_lost"] += int((live & lost[idxs]).sum())
             part = dict(lane=lane, sel=sel, lost=np.nonzero(gone)[0],
                         rows=rows, disc=g.table.disc[rows, pos[rows]],
-                        trim=g.table.trim[rows, pos[rows]], win=None, k=0)
+                        trim=g.table.trim[rows, pos[rows]], wins=[])
             self.positions[idxs[live]] += 1
             if sel.size:
                 t1 = time.perf_counter()
                 ph["host_symbol"] += t1 - t0
-                part["win"], part["k"] = lane.stage(sel, info)
+                # a packet of dfp device frames stages dfp window frames
+                for info in infos:
+                    part["wins"].append(lane.stage(sel, info))
                 st["buckets"][lane.bucket] = st["buckets"].get(
-                    lane.bucket, 0) + 1
+                    lane.bucket, 0) + len(infos)
                 t0 = time.perf_counter()
                 ph["dispatch"] += t0 - t1
             parts.append(part)
@@ -844,9 +1161,11 @@ class StreamPool:
                     zip(p["rows"], p["disc"], p["trim"])}
             if p["sel"].size:
                 t0 = time.perf_counter()
-                frame = p["win"].host()[p["k"]]
+                frames = [win.host()[k] for win, k in p["wins"]]
                 self._fetch_s += time.perf_counter() - t0
-                blk = lane.frames(frame, p["sel"])
+                blks = [lane.frames(f, p["sel"]) for f in frames]
+                blk = blks[0] if len(blks) == 1 else np.concatenate(blks,
+                                                                    axis=1)
                 for pcm, r in zip(blk, p["sel"].tolist()):
                     self.pcm_out[idxs[r]].append(self._trim(pcm, *meta[r]))
             for r in p["lost"].tolist():
@@ -877,11 +1196,12 @@ class StreamPool:
     def stats(self) -> dict:
         """Decode counters (stream_pool.py:4456-4470 of the JAX package):
         steps, frames, bytes_in (of the packets decoded), samples_out,
-        frames per kind (frames_hybrid stays 0: no such path is ported;
+        frames per kind (stereo SILK counts as silk, as in the JAX pool;
         frames_scalar counts the scalar and multistream rows' frames),
         frames_lost, frames_fec (lost frames the next
         packet's LBRR copy recovered), buckets (device frames by lane:
-        ("celtT", LM, C, CC, rows) or ("silk", fs, 20, 1, rows)), phase_s,
+        ("celtT", LM, C, CC, rows), ("silk" or "silk2", fs, frame_ms,
+        dfp, rows) or ("hybrid" or "hybrid2", frame_ms, rows)), phase_s,
         streams and active_streams. Flushes the pipeline first."""
         self._flush()
         active = int(sum(int(p) < len(s.jobs)

@@ -135,6 +135,8 @@ def _bind(so):
     so.celt_comb_deemph.argtypes = [p, i, i, i, p, p, p, p, p, p, p, p]
     so.celt_plc.restype = i
     so.celt_plc.argtypes = [p, ll, i, p, p, p, p, p, p, i, p]
+    so.silk_ms_to_lr.restype = i
+    so.silk_ms_to_lr.argtypes = [p, p, p, p, p, i, i, i, p]
     so.otpu_cuda_error_string.restype = ctypes.c_char_p
     so.otpu_cuda_error_string.argtypes = [i]
     return so

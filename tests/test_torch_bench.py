@@ -1,6 +1,7 @@
 """The port's bench (esp32_opus_player_tpu_torch/bench.py) and the pool
 counters it reads, on the CPU: StreamPool.stats() of the port equals the
-JAX pool's stats() for the same small CELT, SILK and lossy SILK pools
+JAX pool's stats() for the same small CELT, SILK, lossy SILK, lossy
+stereo SILK, concealing hybrid and multi-frame SILK pools
 (every counter but the device bucket histogram, whose keys name each
 pool's own device programs), the per-phase host timer adds up (its fetch
 part inside materialize), and each bench function runs at B 4 on
@@ -32,24 +33,31 @@ def _cut(mod, names, n):
     return out
 
 
+RFC = dict(compat_ref=False, rfc_plc=True)
 CASES = {
     "celt": (["celt_fb_mono_20ms", "celt_fb_mono_drums_20ms"] * 2, {},
-             lambda i, k: (3 * i + k) % 5 == 0, False),
-    "silk": (["silk_nb_mono_20ms", "silk_wb_mono_20ms"], {}, None, False),
-    "lossy_silk": (["silk_wb_fec_mono_20ms", "silk_wb_mono_20ms"] * 2,
-                   dict(compat_ref=False, rfc_plc=True),
-                   lambda i, k: i % 4 == k % 4, True),
+             lambda i, k: (3 * i + k) % 5 == 0, False, 1),
+    "silk": (["silk_nb_mono_20ms", "silk_wb_mono_20ms"], {}, None, False,
+             1),
+    "lossy_silk": (["silk_wb_fec_mono_20ms", "silk_wb_mono_20ms"] * 2, RFC,
+                   lambda i, k: i % 4 == k % 4, True, 1),
+    "lossy_silk_stereo": (["silk_wb_fec_stereo_20ms", "silk_wb_stereo_20ms"],
+                          {}, lambda i, k: k % 4 == 2, True, 2),
+    "hybrid_conceal": (["hybrid_swb_mono_20ms"] * 2, RFC,
+                       lambda i, k: i % 2 == k % 3, False, 1),
+    "silk_60ms": (["silk_wb_mono_60ms"], dict(compat_ref=False), None,
+                  False, 1),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_stats_match_jax(case):
-    names, kw, loss, fec = CASES[case]
+    names, kw, loss, fec, channels = CASES[case]
     n = 12
-    port = StreamPool(_cut(opusfile, names, n), superstep_k=3, device="cpu",
-                      **kw)
-    ref = JaxPool(_cut(jax_opusfile, names, n), channels=1, superstep_k=3,
-                  **kw)
+    port = StreamPool(_cut(opusfile, names, n), channels=channels,
+                      superstep_k=3, device="cpu", **kw)
+    ref = JaxPool(_cut(jax_opusfile, names, n), channels=channels,
+                  superstep_k=3, **kw)
     got_pcm = port.run(loss=loss, fec=fec)
     ref_pcm = ref.run(loss=loss, fec=fec)
     for a, b in zip(got_pcm, ref_pcm):

@@ -740,3 +740,71 @@ def test_lossy_celt_pool_card_matches_cpu(dev, channels):
                       f"CPU| {err:.0f} LSB, {np.count_nonzero(e)} of 960 "
                       f"samples differ, SNR {snr:.2f} dB, twin RMS "
                       f"{rms:.2f}")
+
+
+@pytest.mark.parametrize("ms", [10, 20])
+@pytest.mark.parametrize("fs", [8, 12, 16])
+@pytest.mark.parametrize("rows", [1, 9, 1023, 2048])
+def test_stereo_kernel_matches_plain(dev, rows, fs, ms):
+    """S1 (the stereo unmix) bit-equal to its plain version at ragged
+    widths, every rate and both frame sizes, the frame a misaligned slice
+    and the predictors a column slice of staging-like rows, predictors at
+    the Q13 and int16 extremes and one row with a zero delta; one launch
+    a call."""
+    from esp32_opus_player_tpu_torch.ops.silk.stereo_kernel import (
+        ms_to_lr, ms_to_lr_ref)
+    rng = np.random.default_rng(rows * 100 + fs * 10 + ms)
+    frame = ms * fs
+    i16 = lambda *sh: rng.integers(-32768, 32768, sh)
+    prev = rng.integers(-13732, 13733, (rows, 2))
+    pred = rng.integers(-13732, 13733, (rows, 2))
+    edge = [(13732, -13732), (-13732, 13732), (32767, -32768),
+            (-32768, 32767)]
+    for r in range(min(rows, 4)):
+        prev[r], pred[r] = edge[r], edge[3 - r]
+    if rows > 5:
+        pred[5] = prev[5]
+    wide = t32(i16(rows, 2, frame + 5), dev)
+    stg = torch.zeros((rows, 2, 7), dtype=torch.int32, device=dev)
+    stg[:, 0, 2:4] = t32(pred, dev)
+    args = (t32(i16(rows, 2), dev), t32(i16(rows, 2), dev), t32(prev, dev),
+            wide[:, :, 3:3 + frame], stg[:, 0, 2:4])
+    n = ms_to_lr.launches
+    got = ms_to_lr(*args, fs_khz=fs, frame=frame)
+    assert ms_to_lr.launches == n + 1
+    want = ms_to_lr_ref(*args, fs_khz=fs, frame=frame)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("names,channels,compat,loss", [
+    (("silk_wb_stereo_20ms", "silk_nb_stereo_20ms"), 2, True, None),
+    (("silk_nb_stereo_40ms", "silk_wb_stereo_60ms",
+      "silk_wb_fec_stereo_10ms"), 2, False, None),
+    (("silk_wb_mono_10ms", "silk_wb_mono_60ms"), 1, False, None),
+    (("hybrid_swb_mono_20ms",), 1, True, None),
+    (("hybrid_fb_stereo_10ms",), 2, False, None),
+    (("silk_wb_fec_stereo_20ms", "silk_wb_fec_stereo_10ms"), 2, False,
+     "plc"),
+    (("hybrid_swb_fec_mono_20ms", "hybrid_fb_mono_10ms"), 1, False, "plc"),
+    (("silk_wb_fec_stereo_20ms",), 2, True, "compat"),
+    (("hybrid_fb_stereo_20ms",), 2, True, "compat")])
+def test_stereo_and_hybrid_pools_card_match_cpu(dev, names, channels,
+                                                compat, loss):
+    """The stereo SILK, multi-frame mono SILK and hybrid pools on the card
+    (K7 on the channel rows, S1, K6's fused entry, K1-K3 for hybrid; K8
+    and K9 when concealing) bit-equal to the same pool on the CPU, with
+    bursts, a tenth lost and FEC in RFC mode (rfc_plc), and every 5th
+    packet lost in compat mode."""
+    from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
+    src = [str(ROOT / "fixtures" / f"{n}.opus") for n in names] * 3
+    kw = dict(channels=channels, compat_ref=compat, superstep_k=4,
+              rfc_plc=loss == "plc")
+    lossf = None if loss is None else (
+        (lambda i, k: k % 5 == 4) if loss == "compat" else
+        (lambda i, k: i % 3 == k % 10 or 20 <= k < 24))
+    runs = [StreamPool(src, device=d, **kw).run(loss=lossf,
+                                                fec=loss == "plc")
+            for d in (dev, "cpu")]
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert len(a) > 20000 and np.array_equal(a, b), i

@@ -2,7 +2,9 @@
 decodes a CELT and a SILK fixture through it, a SILK fixture with lost
 packets (concealment and in-band FEC) and a CELT one with lost packets
 (both conceal branches), a fixture through the port's decode_file (the
-scalar route) bit-equal to tests/golden, the bench module imported,
+scalar route) bit-equal to tests/golden, a stereo SILK and a stereo
+hybrid fixture through the pool's lanes bit-equal to tests/golden and a
+stereo SILK one with lost packets, the bench module imported,
 with neither JAX nor the JAX package loaded, and no source
 file of the port (nor chip_smoke.py, nor the port's tools) imports
 either. A native host library that fails to load raises at parse time."""
@@ -49,6 +51,27 @@ pcm = decode_file(sys.argv[2], DecoderConfig(channels=1, compat_ref=True,
 gold = np.fromfile(sys.argv[2].replace("fixtures", "golden").replace(
     ".opus", ".pcm"), dtype=np.int16).reshape(-1, 2)
 assert np.array_equal(np.repeat(pcm, 2, axis=1), gold)
+fix = sys.argv[2].rsplit("/", 1)[0]
+for name in ("silk_wb_stereo_20ms", "hybrid_fb_stereo_20ms"):
+    pool = StreamPool([f"{fix}/{name}.opus"], channels=2, superstep_k=4,
+                      device="cpu")
+    assert pool.path[0][0] in ("silk2", "hybrid2"), pool.path
+    for _ in range(8):
+        pool.step()
+    out = pool.collected()[0]
+    gold = np.fromfile(f"{fix}/../golden/{name}.pcm",
+                       dtype=np.int16).reshape(-1, 2)
+    assert len(out) == 8 * 960 - 312 and np.array_equal(
+        out, gold[:len(out)]), name
+stereo = StreamPool([f"{fix}/silk_wb_fec_stereo_20ms.opus"], channels=2,
+                    compat_ref=False, rfc_plc=True, superstep_k=2,
+                    device="cpu")
+while stereo.positions[0] < 7:
+    k = int(stereo.positions[0])
+    stereo.step(lost={0} if k in (2, 3, 5) else None,
+                fec={0} if k == 5 else None)
+out = stereo.collected()[0]
+assert len(out) > 6 * 960 - 400 and out[3 * 960:4 * 960].any(), out.shape
 print(sorted(m for m in sys.modules if m.startswith("jax")
              or m.split(".")[0] == "esp32_opus_player_tpu"))
 """
@@ -81,7 +104,8 @@ def test_port_sources_never_import_jax():
             "plc_ref.py", "celt_decoder.py", "macros.py", "decode.py",
             "nlsf.py", "core.py", "plc.py", "stereo.py", "resampler.py",
             "silk_decoder.py", "opus_decoder.py", "ms_decoder.py",
-            "api.py", "device.py"} <= names
+            "api.py", "device.py", "stereo_kernel.py", "silk_pool.py",
+            "host_groups.py"} <= names
     assert (PKG / "ops" / "celt" / "torch_plc.py") in files
     assert (PKG / "api.py") in files
     for p in files:

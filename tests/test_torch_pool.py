@@ -66,26 +66,36 @@ def test_all_lost_steps_inside_a_window():
 
 
 def test_unsupported_sources_raise():
-    """Streams the JAX pool batches on a path the port lacks raise with
-    its ROADMAP.md item: stereo SILK (10), hybrid (11), RFC-mode SILK of
-    60 ms (12b); a 5 ms CELT stream batches in RFC mode and takes the
-    scalar route in compat mode (20 ms only), as in the JAX pool; a pool
-    that mixes CELT and SILK lanes is item 12b."""
-    for name, channels, compat, item in [
-            ("silk_wb_stereo_20ms", 2, True, "10"),
-            ("hybrid_swb_mono_20ms", 1, True, "11"),
-            ("silk_wb_mono_60ms", 1, False, "12b")]:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            StreamPool([str(fixture_path(name))], channels=channels,
-                       compat_ref=compat, device="cpu")
+    """What the port's pool still lacks raises with its ROADMAP.md item
+    (12b): a pool that mixes batched kinds (CELT and SILK lanes, mono
+    SILK and hybrid, stereo SILK and stereo hybrid), native=False, device
+    output and out_fs below 48000. Stereo SILK (item 10), hybrid (11)
+    and RFC-mode SILK of 10, 40 and 60 ms take lanes now; a 5 ms CELT
+    stream batches in RFC mode and takes the scalar route in compat mode
+    (20 ms only), as in the JAX pool."""
+    for name, channels, compat, kind in [
+            ("silk_wb_stereo_20ms", 2, True, "silk2"),
+            ("hybrid_swb_mono_20ms", 1, True, "hybrid"),
+            ("silk_wb_mono_60ms", 1, False, "silk")]:
+        pool = StreamPool([str(fixture_path(name))], channels=channels,
+                          compat_ref=compat, device="cpu")
+        assert pool.path[0][0] == kind
     src = [str(fixture_path("celt_fb_mono_5ms"))]
     assert StreamPool(src, compat_ref=False, device="cpu").path[0][0] == \
         "celt"
     assert StreamPool(src, device="cpu").path[0] == ("scalar",)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        StreamPool([str(fixture_path(n)) for n in ("celt_fb_mono_20ms",
-                                                   "silk_wb_mono_20ms")],
-                   device="cpu")
+    for names, channels in [
+            (("celt_fb_mono_20ms", "silk_wb_mono_20ms"), 1),
+            (("silk_wb_mono_20ms", "hybrid_swb_mono_20ms"), 1),
+            (("silk_wb_stereo_20ms", "hybrid_fb_stereo_20ms"), 2)]:
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            StreamPool([str(fixture_path(n)) for n in names],
+                       channels=channels, device="cpu")
+    src = [str(fixture_path("silk_wb_mono_20ms"))]
+    for kw in (dict(native=False), dict(output="device"),
+               dict(out_fs=16000)):
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            StreamPool(src, device="cpu", **kw)
 
 
 def test_default_device_is_the_card():
