@@ -1,0 +1,9 @@
+"""dispatch_ms (ms/step): the pool's own dispatch phase time
+(StreamPool._phase_s["dispatch"], the same dict stats()["phase_s"] copies;
+read directly, since stats() flushes the pipeline), its growth over the
+window over the window's steps. The program's span timer."""
+
+
+def read(run):
+    w = run.window
+    return w.phase_s["dispatch"] / w.steps * 1e3 if w.steps else None
