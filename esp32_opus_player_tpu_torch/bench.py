@@ -21,7 +21,8 @@ Realtime streams = seconds of audio decoded per second of wall time,
 B * 0.02 s / wall time per step for a pool of 20 ms streams. The per-step
 host phases come from the pool's `_phase_s`: host_symbol, dispatch and
 materialize (models/stream_pool.py), and materialize_fetch, the part of
-materialize that waits for a window's PCM (the pool's `_fetch_s`).
+materialize that waits for a window's PCM (the `fetch_wait` spans on the
+port's recorder, utils/spans.py).
 
 The port's pool has no fixed_buckets, warmup() or device-resident output
 (ROADMAP.md queue A item 12b), so the pool benches take PCM to the host
@@ -56,6 +57,7 @@ from .models.celt_pool_T import (_CELT_HDR, celt_packed_frame_T,
 from .models.silk_pool import (make_bucket, silk_frame, silk_pool_superstep,
                                stage_width)
 from .ops.celt.torch_synthesis import DECODE_BUFFER_SIZE, NB_EBANDS, OVERLAP
+from .utils import spans
 
 FIX = pathlib.Path(__file__).resolve().parents[1] / "tests" / "fixtures"
 # name: (fixtures, channels, streams, superstep_k, pool options, loss)
@@ -374,15 +376,17 @@ def bench_pool(names, B: int, channels: int, K: int, iters: int = 10,
     run(warm)
     walls, phases = [], {k: [] for k in (*pool._phase_s,
                                          "materialize_fetch")}
+    rec = spans.recorder()
     for _ in range(repeats):
         for k in pool._phase_s:
             pool._phase_s[k] = 0.0
-        pool._fetch_s = 0.0
         t0 = time.perf_counter()
         run(iters)
-        walls.append((time.perf_counter() - t0) / iters)
+        t1 = time.perf_counter()
+        walls.append((t1 - t0) / iters)
+        fetch = rec.totals(t0, t1).get("fetch_wait")
         for k, v in (*pool._phase_s.items(),
-                     ("materialize_fetch", pool._fetch_s)):
+                     ("materialize_fetch", fetch.total_s if fetch else 0.0)):
             phases[k].append(v / iters * 1e3)
     return dict(B=B, K=K, iters=iters, warm=warm, setup_s=setup_s,
                 streams=summary([audio_s / w for w in walls]),

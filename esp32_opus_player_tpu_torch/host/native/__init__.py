@@ -9,14 +9,18 @@ sources, the Makefile and the host CPU: the Makefile builds with
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import hashlib
 import os
 import pathlib
 import platform
 import subprocess
+import threading
 
 import numpy as np
+
+from ...utils import spans
 
 _DIR = pathlib.Path(__file__).resolve().parent
 BUILD_ROOT = _DIR.parents[1] / "build"
@@ -77,10 +81,23 @@ class CeltHostState(ctypes.Structure):
 
 
 def load():
+    """The library, built if absent (a `load.native` span, its `compiled`
+    1 where it was built)."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(_build()))
+    if _lib is None:
+        rec = spans.recorder()
+        sp = rec.open("load.native")
+        compiled = not library_path().exists()
+        try:
+            _lib = _bind(ctypes.CDLL(str(_build())))
+        finally:
+            rec.close(sp, None, (float(compiled),))
+        if compiled:
+            rec.count("load.native.compiled")
+    return _lib
+
+
+def _bind(lib):
     lib.celt_host_decode.restype = ctypes.c_int
     lib.celt_host_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -93,7 +110,6 @@ def load():
         lib.celt_host_decode.argtypes + [ctypes.POINTER(ctypes.c_int32)]
     lib.celt_host_reset.argtypes = [ctypes.POINTER(CeltHostState)]
     _bind_batch(lib)
-    _lib = lib
     return lib
 
 
@@ -130,6 +146,38 @@ def _bind_batch(lib):
         i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p,
         i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p,
         i32p, i32p, i32p, ctypes.c_int]
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.host_batch_last_strips.restype = ctypes.c_int
+    lib.host_batch_last_strips.argtypes = [f64p, f64p, ctypes.c_int, f64p]
+    lib.host_batch_take_strips.restype = None
+    lib.host_batch_take_strips.argtypes = [ctypes.c_void_p]
+
+
+def last_strips():
+    """(wall_s, cpu_s, entry_wall_s) of the last batch entry this thread
+    called: each strip's wall and CPU seconds (lists of T) and the
+    entry's own wall seconds."""
+    lib = load()
+    cap = 1024
+    wall, cpu = (ctypes.c_double * cap)(), (ctypes.c_double * cap)()
+    entry = ctypes.c_double()
+    T = min(lib.host_batch_last_strips(wall, cpu, cap, ctypes.byref(entry)),
+            cap)
+    return wall[:T], cpu[:T], entry.value
+
+
+_take = threading.local()
+
+
+def take_strips() -> tuple:
+    """(strips, cpu_s, wall_s, thread_s) summed over the batch entries
+    this thread called since its last take: their strips, the strips' CPU
+    seconds, the entries' wall seconds, and strips x entry wall."""
+    buf = getattr(_take, "buf", None)
+    if buf is None:
+        buf = _take.buf = array.array("d", bytes(32))
+    (_lib or load()).host_batch_take_strips(buf.buffer_info()[0])
+    return tuple(buf)
 
 
 def ptr(a, typ=ctypes.c_int32):

@@ -9,7 +9,16 @@
 // The reference decodes one stream on one core (src/main.cpp decode
 // task); this is the N-streams-per-step equivalent the TPU pool needs
 // (SURVEY.md §2.7 stream-batch data parallelism, host half).
+//
+// Each entry also times its strips: wall (steady_clock) and CPU
+// (CLOCK_THREAD_CPUTIME_ID) per strip, and its own wall. The calling
+// thread reads the last entry's with host_batch_last_strips and the sums
+// since its last read with host_batch_take_strips (thread-local: a
+// thread reads what its own calls did).
+#include <time.h>
+
 #include <algorithm>
+#include <chrono>
 #include <cstdint>
 #include <thread>
 #include <vector>
@@ -47,28 +56,83 @@ int silk_host_stereo_c(const u8* data, int len, int fs_khz,
 
 namespace {
 
-// run fn(i) for i in [0, n) over up to n_threads strips
+double cpu_now() {
+    timespec ts;
+    clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts);
+    return (double)ts.tv_sec + 1e-9 * (double)ts.tv_nsec;
+}
+
+double wall_since(std::chrono::steady_clock::time_point t0) {
+    return std::chrono::duration<double>(
+        std::chrono::steady_clock::now() - t0).count();
+}
+
+// the calling thread's strip times: the last entry's strips and its
+// wall, and since the last take: strips, CPU s, entry wall s, and the
+// sum of strips x entry wall
+thread_local std::vector<double> last_wall, last_cpu;
+thread_local double last_entry = 0.0;
+thread_local double taken[4] = {0.0, 0.0, 0.0, 0.0};
+
+// run fn(i) for i in [0, n) over T = min(n_threads, n) strips (one strip
+// on the calling thread when n_threads <= 1 or n < 2), timing each strip
 template <typename F>
 void strip_for(int n, int n_threads, F fn) {
-    if (n_threads <= 1 || n < 2) {
-        for (int i = 0; i < n; i++) fn(i);
-        return;
-    }
-    int T = std::min(n_threads, n);
-    std::vector<std::thread> ts;
-    ts.reserve(T - 1);
+    auto e0 = std::chrono::steady_clock::now();
+    int T = (n_threads <= 1 || n < 2) ? std::min(n, 1)
+                                      : std::min(n_threads, n);
+    std::vector<double> wall(T), cpu(T);
     auto run = [&](int t) {
+        auto w0 = std::chrono::steady_clock::now();
+        double c0 = cpu_now();
         int lo = (int)((i64)n * t / T), hi = (int)((i64)n * (t + 1) / T);
         for (int i = lo; i < hi; i++) fn(i);
+        cpu[t] = cpu_now() - c0;
+        wall[t] = wall_since(w0);
     };
+    std::vector<std::thread> ts;
+    ts.reserve(std::max(T - 1, 0));
     for (int t = 1; t < T; t++) ts.emplace_back(run, t);
-    run(0);
+    if (T > 0) run(0);
     for (auto& th : ts) th.join();
+    double entry = wall_since(e0), cpu_sum = 0.0;
+    for (double c : cpu) cpu_sum += c;
+    taken[0] += T;
+    taken[1] += cpu_sum;
+    taken[2] += entry;
+    taken[3] += T * entry;
+    last_wall.swap(wall);
+    last_cpu.swap(cpu);
+    last_entry = entry;
 }
 
 }  // namespace
 
 extern "C" {
+
+// The last batch entry this thread called: its strips' wall and CPU
+// seconds (up to cap of them) and its own wall seconds. Returns the
+// number of strips, T.
+int host_batch_last_strips(double* wall, double* cpu, int cap,
+                           double* entry_wall) {
+    int T = (int)last_wall.size();
+    for (int t = 0; t < T && t < cap; t++) {
+        wall[t] = last_wall[t];
+        cpu[t] = last_cpu[t];
+    }
+    *entry_wall = last_entry;
+    return T;
+}
+
+// The sums over the batch entries this thread called since its last
+// take, into out[4]: strips, strip CPU s, entry wall s, strips x entry
+// wall s; then zero them.
+void host_batch_take_strips(double* out) {
+    for (int k = 0; k < 4; k++) {
+        out[k] = taken[k];
+        taken[k] = 0.0;
+    }
+}
 
 // Batched CELT symbol phase. Row i decodes blob[offs[i] .. offs[i]+
 // lens[i]) with per-row start/end bands into row i of the output

@@ -107,12 +107,14 @@ class CeltGroup:
     state)."""
 
     def __init__(self, idxs, job_lists, spf: int, channels: int,
-                 start: int, ends, n_threads: int = 0, C: int = 0):
+                 start: int, ends, n_threads: int = 0, C: int = 0,
+                 table: FrameTable | None = None):
         """channels: the decoder's output channels (CC); C: the coded
-        channels of the group's packets (0: the same as CC)."""
+        channels of the group's packets (0: the same as CC); table: the
+        job lists' FrameTable, if the caller has built it."""
         self.idxs = list(idxs)
         m = len(self.idxs)
-        self.table = FrameTable(job_lists)
+        self.table = FrameTable(job_lists) if table is None else table
         self.spf = spf
         self.channels = channels           # CC
         self.C = C or (2 if channels == 2 else 1)
@@ -231,10 +233,11 @@ class SilkGroup:
     CELT resume batch); 40/60 ms payloads via the packet entry."""
 
     def __init__(self, idxs, job_lists, fs: int, payload_ms: int,
-                 hybrid: bool = False, n_threads: int = 0):
+                 hybrid: bool = False, n_threads: int = 0,
+                 table: FrameTable | None = None):
         self.idxs = list(idxs)
         m = len(self.idxs)
-        self.table = FrameTable(job_lists)
+        self.table = FrameTable(job_lists) if table is None else table
         self.fs = fs
         self.payload_ms = payload_ms
         self.hybrid = hybrid
@@ -284,10 +287,11 @@ class SilkStereoGroup:
     coherent."""
 
     def __init__(self, idxs, job_lists, fs: int, hybrid: bool = False,
-                 n_threads: int = 0, frame_ms: int = 20):
+                 n_threads: int = 0, frame_ms: int = 20,
+                 table: FrameTable | None = None):
         self.idxs = list(idxs)
         m = len(self.idxs)
-        self.table = FrameTable(job_lists)
+        self.table = FrameTable(job_lists) if table is None else table
         self.fs = fs
         self.hybrid = hybrid
         self.frame_ms = frame_ms

@@ -55,9 +55,11 @@ stats() gives the JAX pool's counters, and _phase_s its per-phase host
 wall time (seconds): host_symbol (the batched symbol phase and, for
 lost SILK rows, the conceal preps and FEC decodes), dispatch (staging
 and the device enqueues), materialize (the PCM fetch and the routing to
-the streams). _fetch_s is the part of materialize spent in the fetch
-itself, _Window.host(): the wait for the window's frame steps and its
-copy to the host.
+the streams). The pool records where that time goes as spans on the
+process's recorder (utils/spans.py): each phase is a span from the same
+stamps as its _phase_s key, with the symbol call, the staging and its
+wait, the window's enqueue, the wait for a window's PCM and the routing
+of each step inside, and its construction as `pool.build`.
 
 Lost packets (step(lost=, fec=), run(loss=, fec=)): a lost CELT packet
 gives silence and leaves the stream's state untouched, a masked row,
@@ -105,6 +107,8 @@ from ..ops.celt.pvq import renormalise_vector
 from ..ops.celt.torch_plc import LPC_ORDER
 from ..ops.celt.torch_synthesis import (DECODE_BUFFER_SIZE, EB, I32,
                                         NB_EBANDS, OVERLAP, SHORT_MDCT_SIZE)
+from ..host.native import take_strips
+from ..utils import spans
 from ..utils.device import resolve_device
 from . import host_groups as hg
 from . import silk_pool
@@ -156,6 +160,7 @@ class _Lane:
 
     def __init__(self, pool, group, idxs, width: int, dtype):
         self.pool = pool
+        self.index = len(pool._lanes)   # a hybrid lane's halves share it
         self.group = group
         self.idxs = np.asarray(idxs, dtype=np.int64)
         self.n = len(self.idxs)
@@ -185,10 +190,15 @@ class _Lane:
         are inactive; `info` is the lane's own per-frame data). `fill`
         says whether the frame has inactive rows (it is masked). Returns
         the frame's index in the window."""
+        rec, sn = self.pool._rec, self.pool._step_no
+        sp = rec.open("stage", sn, self.index)
         if not self.masked and self.stg_free is not None:
+            w = rec.open("stage_wait", sn, self.index)
             self.stg_free.synchronize()
+            rec.close(w)
         k = len(self.masked)
         self.masked.append(self.fill(self.stg_np[k], sel, info))
+        rec.close(sp)
         return k
 
     def stage(self, sel, info=None):
@@ -208,6 +218,7 @@ class _Lane:
     def dispatch(self) -> None:
         """Run the buffered frames of the window on the device."""
         pool, win, K = self.pool, self.win, len(self.masked)
+        sp = pool._rec.open("enqueue", pool._step_no, self.index)
         stgK = self.stg[:K].to(pool.device, non_blocking=True)
         aux = self.upload_aux()
         if pool._cuda:
@@ -229,6 +240,7 @@ class _Lane:
             win.host_t = pcmK
         self.win = _Window(self)
         self.masked = []
+        pool._rec.close(sp)
 
 
 class _Pinned:
@@ -351,11 +363,12 @@ class _CeltLane(_Lane):
 
     kind = "celt"
 
-    def __init__(self, pool, LM: int, C: int, idxs, ends, start: int = 0):
+    def __init__(self, pool, LM: int, C: int, idxs, ends, start: int = 0,
+                 table=None):
         self.LM, self.N = LM, SHORT_MDCT_SIZE << LM
         self.start = start
         g = hg.CeltGroup(idxs, [pool.streams[i].jobs for i in idxs], self.N,
-                         pool.channels, start, ends, C=C)
+                         pool.channels, start, ends, C=C, table=table)
         self.C = g.C
         super().__init__(pool, g, idxs,
                          _CELT_HDR + 2 * NB_EBANDS + g.C * self.N,
@@ -502,7 +515,7 @@ class _SilkLane(_Lane):
 
     def __init__(self, pool, idxs, fs: int, dfp: int = 1, ms: int = 20,
                  frame_ms: int = 20, stereo: bool = False,
-                 hybrid: bool = False):
+                 hybrid: bool = False, table=None):
         jobs = [pool.streams[i].jobs for i in idxs]
         self.fs, self.dfp, self.ms, self.stereo = fs, dfp, ms, stereo
         self.nb = frame_ms // 5
@@ -513,9 +526,9 @@ class _SilkLane(_Lane):
         self.plc = pool.rfc_plc
         if stereo:
             g = hg.SilkStereoGroup(idxs, jobs, fs, hybrid=hybrid,
-                                   frame_ms=frame_ms)
+                                   frame_ms=frame_ms, table=table)
         else:
-            g = hg.SilkGroup(idxs, jobs, fs, ms, hybrid=hybrid)
+            g = hg.SilkGroup(idxs, jobs, fs, ms, hybrid=hybrid, table=table)
         # one frame a packet (mono: one payload of 1-3 internal frames)
         one = dfp // max(1, ms // 20) == 1
         self.batched = one and (not stereo or dfp == 1)
@@ -792,12 +805,15 @@ class _HybridLane(_Lane):
 
     kind = "hybrid"
 
-    def __init__(self, pool, idxs, frame_ms: int, stereo: bool):
+    def __init__(self, pool, idxs, frame_ms: int, stereo: bool,
+                 table=None):
+        # both halves read the same packets: one FrameTable
         self.silk = _SilkLane(pool, idxs, 16, 1, frame_ms, frame_ms,
-                              stereo=stereo, hybrid=True)
+                              stereo=stereo, hybrid=True, table=table)
         self.celt = _CeltLane(pool, 3 if frame_ms == 20 else 2,
                               2 if stereo else 1, idxs,
-                              [pool.path[i][1] for i in idxs], start=17)
+                              [pool.path[i][1] for i in idxs], start=17,
+                              table=self.silk.group.table)
         super().__init__(pool, self.silk.group, idxs, 1, torch.int8)
         self.N = 48 * frame_ms
         self.bucket = ("hybrid2" if stereo else "hybrid", frame_ms, self.n)
@@ -860,6 +876,15 @@ class StreamPool:
         On "cuda" (the default) the steps launch the hand-written
         kernels; without a card that raises. On "cpu" every kernel's
         plain torch version runs."""
+        self._rec = rec = spans.recorder()
+        with rec.span("pool.build"):
+            self._build(sources, channels, native, compat_ref, rfc_plc,
+                        output, out_fs, superstep_k, device)
+
+    def _build(self, sources, channels, native, compat_ref, rfc_plc,
+               output, out_fs, superstep_k, device) -> None:
+        """__init__'s work: the `classify`, `tables` and `lanes` spans."""
+        rec = self._rec
         if channels < 1:
             raise ValueError("channels must be >= 1")
         if not native:
@@ -874,16 +899,17 @@ class StreamPool:
             raise ValueError("superstep_k must be >= 1")
         self.device = resolve_device(device, "StreamPool")
         self._cuda = self.device.type == "cuda"
-        parsed = {}
-        self.streams = [self._parse(s, parsed) for s in sources]
-        self.n = len(self.streams)
-        if self.n == 0:
-            raise ValueError("StreamPool needs at least one source")
-        self.channels = channels
-        self.compat_ref = compat_ref
-        self.rfc_plc = rfc_plc
-        self.path = [self._check_source(i, s)
-                     for i, s in enumerate(self.streams)]
+        with rec.span("classify"):
+            parsed = {}
+            self.streams = [self._parse(s, parsed) for s in sources]
+            self.n = len(self.streams)
+            if self.n == 0:
+                raise ValueError("StreamPool needs at least one source")
+            self.channels = channels
+            self.compat_ref = compat_ref
+            self.rfc_plc = rfc_plc
+            self.path = [self._check_source(i, s)
+                         for i, s in enumerate(self.streams)]
         if channels > 2 and any(k != ("ms",) for k in self.path):
             raise ValueError("channels > 2 takes multistream sources only")
         batched = {k[0] for k in self.path} - {"scalar", "ms"}
@@ -900,18 +926,26 @@ class StreamPool:
             if k[0] in batched:
                 by_key[k[:-1] if k[0] == "celt" else k[:1] + k[2:]
                        if k[0] in ("hybrid", "hybrid2") else k].append(i)
+        keys = sorted(by_key.items())
+        with rec.span("tables"):
+            tables = [hg.FrameTable([self.streams[i].jobs for i in idxs])
+                      for _, idxs in keys]
         self._lanes = []
-        for key, idxs in sorted(by_key.items()):
-            if key[0] == "celt":
-                lane = _CeltLane(self, key[1], key[2], idxs,
-                                 [self.path[i][-1] for i in idxs])
-            elif key[0] in ("silk", "silk2"):
-                lane = _SilkLane(self, idxs, *key[1:],
-                                 stereo=key[0] == "silk2")
-            else:
-                lane = _HybridLane(self, idxs, key[1],
-                                   stereo=key[0] == "hybrid2")
-            self._lanes.append(lane)
+        self._step_no = -1                 # the step running, or the last
+        with rec.span("lanes"):
+            for (key, idxs), table in zip(keys, tables):
+                if key[0] == "celt":
+                    lane = _CeltLane(self, key[1], key[2], idxs,
+                                     [self.path[i][-1] for i in idxs],
+                                     table=table)
+                elif key[0] in ("silk", "silk2"):
+                    lane = _SilkLane(self, idxs, *key[1:],
+                                     stereo=key[0] == "silk2", table=table)
+                else:
+                    lane = _HybridLane(self, idxs, key[1],
+                                       stereo=key[0] == "hybrid2",
+                                       table=table)
+                self._lanes.append(lane)
         # scalar and multistream rows: one host decoder each, made at its
         # stream's first packet and anew at each chain link
         self._scalar_rows = [i for i, k in enumerate(self.path)
@@ -923,7 +957,6 @@ class StreamPool:
                            buckets={})
         self._phase_s = dict(host_symbol=0.0, dispatch=0.0,
                              materialize=0.0)
-        self._fetch_s = 0.0
         # CUDA events around the frame steps of the latest windows
         self._win_events = collections.deque(maxlen=1024)
         # device work of step t is fetched at the end of step t+depth, so
@@ -1036,59 +1069,73 @@ class StreamPool:
         in-band SILK LBRR copy should reconstruct when it has one (that
         packet stays unread: the next step decodes it). Returns False
         once every stream is exhausted."""
+        rec = self._rec
+        self._step_no = sn = self._step_no + 1
         t0 = time.perf_counter()
-        lost = np.isin(np.arange(self.n), list(lost or ()))
-        fec = np.isin(np.arange(self.n), list(fec or ())) & lost
-        st, ph = self._stats, self._phase_s
-        parts = []
-        for lane in self._lanes:
-            g, idxs = lane.group, lane.idxs
-            pos = self.positions[idxs]
-            live = pos < g.table.n_packets
-            if not live.any():
-                continue
-            gone = live & lost[idxs]
-            active = live & ~gone
-            ok = lane.decode(pos, active) if active.any() else active
-            dec = np.nonzero(ok)[0]
-            st["bytes_in"] += int(g.table.pkt_bytes[dec, pos[dec]].sum())
-            sel, infos, n_fec = lane.host_step(pos, ok, gone, fec[idxs])
-            st["frames_fec"] += n_fec
-            gone[sel] = False
-            rows = np.nonzero(live)[0]
-            st["frames"] += rows.size
-            st[f"frames_{lane.kind}"] += rows.size
-            st["frames_lost"] += int((live & lost[idxs]).sum())
-            part = dict(lane=lane, sel=sel, lost=np.nonzero(gone)[0],
-                        rows=rows, disc=g.table.disc[rows, pos[rows]],
-                        trim=g.table.trim[rows, pos[rows]], wins=[])
-            self.positions[idxs[live]] += 1
-            if sel.size:
-                t1 = time.perf_counter()
-                ph["host_symbol"] += t1 - t0
-                # a packet of dfp device frames stages dfp window frames
-                for info in infos:
-                    part["wins"].append(lane.stage(sel, info))
-                st["buckets"][lane.bucket] = st["buckets"].get(
-                    lane.bucket, 0) + len(infos)
-                t0 = time.perf_counter()
-                ph["dispatch"] += t0 - t1
-            parts.append(part)
-        if self._scalar_rows:
-            part = self._scalar_step(lost)
-            if part["direct"]:
+        sp = rec.open("step", sn, -1, t0)
+        try:
+            lost = np.isin(np.arange(self.n), list(lost or ()))
+            fec = np.isin(np.arange(self.n), list(fec or ())) & lost
+            st, ph = self._stats, self._phase_s
+            parts = []
+            hs = rec.open("host_symbol", sn, -1, t0)
+            for lane in self._lanes:
+                g, idxs = lane.group, lane.idxs
+                pos = self.positions[idxs]
+                live = pos < g.table.n_packets
+                if not live.any():
+                    continue
+                gone = live & lost[idxs]
+                active = live & ~gone
+                ok = active
+                if active.any():
+                    sym = rec.open("symbol", sn, lane.index)
+                    ok = lane.decode(pos, active)
+                    rec.close(sym, None, take_strips())
+                dec = np.nonzero(ok)[0]
+                st["bytes_in"] += int(g.table.pkt_bytes[dec, pos[dec]].sum())
+                sel, infos, n_fec = lane.host_step(pos, ok, gone, fec[idxs])
+                st["frames_fec"] += n_fec
+                gone[sel] = False
+                rows = np.nonzero(live)[0]
+                st["frames"] += rows.size
+                st[f"frames_{lane.kind}"] += rows.size
+                st["frames_lost"] += int((live & lost[idxs]).sum())
+                part = dict(lane=lane, sel=sel, lost=np.nonzero(gone)[0],
+                            rows=rows, disc=g.table.disc[rows, pos[rows]],
+                            trim=g.table.trim[rows, pos[rows]], wins=[])
+                self.positions[idxs[live]] += 1
+                if sel.size:
+                    t1 = rec.close(hs)
+                    ph["host_symbol"] += t1 - t0
+                    d = rec.open("dispatch", sn, -1, t1)
+                    # a packet of dfp device frames stages dfp window frames
+                    for info in infos:
+                        part["wins"].append(lane.stage(sel, info))
+                    st["buckets"][lane.bucket] = st["buckets"].get(
+                        lane.bucket, 0) + len(infos)
+                    t0 = rec.close(d)
+                    ph["dispatch"] += t0 - t1
+                    hs = rec.open("host_symbol", sn, -1, t0)
                 parts.append(part)
-        ph["host_symbol"] += time.perf_counter() - t0
+            if self._scalar_rows:
+                part = self._scalar_step(lost)
+                if part["direct"]:
+                    parts.append(part)
+            t1 = rec.close(hs)
+            ph["host_symbol"] += t1 - t0
+            if parts:
+                st["steps"] += 1
+                self._pending.append(parts)
+                m = rec.open("materialize", sn, -1, t1)
+                while len(self._pending) > self.pipeline_depth:
+                    self._route(self._pending.pop(0))
+                ph["materialize"] += rec.close(m) - t1
+        finally:
+            rec.close(sp)
         if not parts:
             self._flush()
-            return False
-        st["steps"] += 1
-        self._pending.append(parts)
-        t0 = time.perf_counter()
-        while len(self._pending) > self.pipeline_depth:
-            self._route(self._pending.pop(0))
-        ph["materialize"] += time.perf_counter() - t0
-        return True
+        return bool(parts)
 
     def _scalar_decoder(self, i: int, link: int):
         """Row i's host decoder for chain link `link`: an OpusMSDecoder
@@ -1150,19 +1197,27 @@ class StreamPool:
     def _route(self, parts) -> None:
         """Trim and append one step's PCM per stream (a lost CELT frame
         that is not concealed as N samples of silence, N the lane's frame
-        size; a scalar row's PCM as its decoder gave it)."""
+        size; a scalar row's PCM as its decoder gave it): a `fetch_wait`
+        span for the wait for the part's windows, a `route` span for the
+        rest."""
+        rec, sn = self._rec, self._step_no
         for p in parts:
             if p["lane"] is None:
+                rs = rec.open("route", sn)
                 for i, pcm, lo, te in p["direct"]:
                     self.pcm_out[i].append(self._trim(pcm, lo, te))
+                rec.close(rs)
                 continue
-            lane, idxs = p["lane"], p["lane"].idxs
+            lane = p["lane"]
+            if p["sel"].size:
+                fw = rec.open("fetch_wait", sn, lane.index)
+                frames = [win.host()[k] for win, k in p["wins"]]
+                rec.close(fw)
+            rs = rec.open("route", sn, lane.index)
+            idxs = lane.idxs
             meta = {int(r): (int(d), int(t)) for r, d, t in
                     zip(p["rows"], p["disc"], p["trim"])}
             if p["sel"].size:
-                t0 = time.perf_counter()
-                frames = [win.host()[k] for win, k in p["wins"]]
-                self._fetch_s += time.perf_counter() - t0
                 blks = [lane.frames(f, p["sel"]) for f in frames]
                 blk = blks[0] if len(blks) == 1 else np.concatenate(blks,
                                                                     axis=1)
@@ -1172,6 +1227,7 @@ class StreamPool:
                 self.pcm_out[idxs[r]].append(self._trim(
                     np.zeros((lane.N, self.channels), dtype=np.int16),
                     *meta[r]))
+            rec.close(rs)
 
     def _trim(self, pcm, lo: int, te: int):
         # a copy, so the stream's PCM keeps no window buffer alive
@@ -1181,17 +1237,26 @@ class StreamPool:
         return out
 
     def _flush(self) -> None:
-        """Dispatch every partial window and retire every pending step."""
+        """Dispatch every partial window and retire every pending step
+        (a step of its own on the recorder)."""
+        rec, ph = self._rec, self._phase_s
+        self._step_no = sn = self._step_no + 1
         t0 = time.perf_counter()
-        for lane in self._lanes:
-            if lane.masked:
-                lane.dispatch()
-        t1 = time.perf_counter()
-        self._phase_s["dispatch"] += t1 - t0
-        pends, self._pending = self._pending, []
-        for p in pends:
-            self._route(p)
-        self._phase_s["materialize"] += time.perf_counter() - t1
+        sp = rec.open("step", sn, -1, t0)
+        try:
+            d = rec.open("dispatch", sn, -1, t0)
+            for lane in self._lanes:
+                if lane.masked:
+                    lane.dispatch()
+            t1 = rec.close(d)
+            ph["dispatch"] += t1 - t0
+            m = rec.open("materialize", sn, -1, t1)
+            pends, self._pending = self._pending, []
+            for p in pends:
+                self._route(p)
+            ph["materialize"] += rec.close(m) - t1
+        finally:
+            rec.close(sp)
 
     def stats(self) -> dict:
         """Decode counters (stream_pool.py:4456-4470 of the JAX package):

@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import threading
 
+from ..utils import spans
+
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -100,11 +102,20 @@ def build() -> pathlib.Path:
 
 
 def lib():
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call (a `load.cuda`
+    span, its `compiled` 1 where it was built)."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build())))
+            rec = spans.recorder()
+            sp = rec.open("load.cuda")
+            compiled = not library_path().exists()
+            try:
+                _lib = _bind(ctypes.CDLL(str(build())))
+            finally:
+                rec.close(sp, None, (float(compiled),))
+            if compiled:
+                rec.count("load.cuda.compiled")
         return _lib
 
 

@@ -3,10 +3,11 @@ counters it reads, on the CPU: StreamPool.stats() of the port equals the
 JAX pool's stats() for the same small CELT, SILK, lossy SILK, lossy
 stereo SILK, concealing hybrid and multi-frame SILK pools
 (every counter but the device bucket histogram, whose keys name each
-pool's own device programs), the per-phase host timer adds up (its fetch
-part inside materialize), and each bench function runs at B 4 on
-device="cpu" and returns its keys."""
+pool's own device programs), the per-phase host timer adds up (the
+recorder's fetch_wait spans inside materialize), and each bench function
+runs at B 4 on device="cpu" and returns its keys."""
 import os
+import time
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ from esp32_opus_player_tpu.models.stream_pool import StreamPool as JaxPool
 from esp32_opus_player_tpu_torch import bench
 from esp32_opus_player_tpu_torch.host import opusfile
 from esp32_opus_player_tpu_torch.models.stream_pool import StreamPool
+from esp32_opus_player_tpu_torch.utils import spans
 
 from conftest import fixture_path
 
@@ -58,6 +60,7 @@ def test_stats_match_jax(case):
                       superstep_k=3, device="cpu", **kw)
     ref = JaxPool(_cut(jax_opusfile, names, n), channels=channels,
                   superstep_k=3, **kw)
+    t0 = time.perf_counter()
     got_pcm = port.run(loss=loss, fec=fec)
     ref_pcm = ref.run(loss=loss, fec=fec)
     for a, b in zip(got_pcm, ref_pcm):
@@ -71,7 +74,8 @@ def test_stats_match_jax(case):
         assert 0 < got["frames_fec"] <= got["frames_lost"]
     assert set(got["phase_s"]) == {"host_symbol", "dispatch", "materialize"}
     assert all(v > 0 for v in got["phase_s"].values())
-    assert 0 < port._fetch_s <= got["phase_s"]["materialize"]
+    fetch = spans.recorder().totals(t0)["fetch_wait"].total_s
+    assert 0 < fetch <= got["phase_s"]["materialize"]
     assert sum(got["buckets"].values()) >= got["steps"]
 
 
