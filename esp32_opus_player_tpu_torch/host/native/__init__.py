@@ -116,7 +116,8 @@ def _bind(lib):
 def _bind_batch(lib):
     """Batched symbol-phase entries (batch_entry.cpp): one call decodes N
     streams' frames into contiguous output tensors, strip-mined over
-    host threads with the GIL released once per step."""
+    host threads with the GIL released once per step; and the CELT
+    window's PCM cut (route_entry.cpp)."""
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i16p = ctypes.POINTER(ctypes.c_int16)
     i32p = ctypes.POINTER(ctypes.c_int32)
@@ -146,6 +147,10 @@ def _bind_batch(lib):
         i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p,
         i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p,
         i32p, i32p, i32p, ctypes.c_int]
+    lib.pcm_cut_T.restype = ctypes.c_int64
+    lib.pcm_cut_T.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i64p,
+        i32p, i32p, ctypes.c_int, ctypes.c_void_p, i64p]
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.host_batch_last_strips.restype = ctypes.c_int
     lib.host_batch_last_strips.argtypes = [f64p, f64p, ctypes.c_int, f64p]
@@ -178,6 +183,38 @@ def take_strips() -> tuple:
         buf = _take.buf = array.array("d", bytes(32))
     (_lib or load()).host_batch_take_strips(buf.buffer_info()[0])
     return tuple(buf)
+
+
+def cut_T(frame, sel, lo, te, out, off) -> int:
+    """The PCM of rows `sel` of one transposed window frame (CC, N, n)
+    int16 (a CELT lane's, streams contiguous), stream-major: row j's
+    samples [lo[j], N - te[j]) of stream sel[j] into out[off[j]:off[j +
+    1]], (samples, CC) with the channels interleaved (empty where lo[j] +
+    te[j] >= N), in one pass over tiles of streams x samples
+    (route_entry.cpp, pcm_cut_T). sel int64, lo and te
+    int32 (>= 0), out int16 (at least len(sel) * N, CC) and off int64
+    (len(sel) + 1,), all C-contiguous. Returns off[-1], the samples
+    written."""
+    CC, N, n = frame.shape
+    m = len(sel)
+    if frame.dtype != np.int16 or not frame.flags.c_contiguous \
+            or CC not in (1, 2):
+        raise ValueError("frame must be C-contiguous int16 (CC 1|2, N, n)")
+    for a, dt, size in ((sel, np.int64, m), (lo, np.int32, m),
+                        (te, np.int32, m), (off, np.int64, m + 1)):
+        if a.dtype != dt or not a.flags.c_contiguous or a.shape != (size,):
+            raise ValueError(f"expected C-contiguous {dt.__name__} ({size},)")
+    if out.dtype != np.int16 or not out.flags.c_contiguous \
+            or out.ndim != 2 or out.shape[0] < m * N or out.shape[1] != CC:
+        raise ValueError(f"out must be C-contiguous int16 (>= {m * N}, "
+                         f"{CC})")
+    if m and (sel.min() < 0 or sel.max() >= n or lo.min() < 0
+              or te.min() < 0):
+        raise ValueError("sel out of the frame's streams, or a negative "
+                         "trim")
+    return load().pcm_cut_T(
+        frame.ctypes.data, CC, N, n, ptr(sel, ctypes.c_int64), ptr(lo),
+        ptr(te), m, out.ctypes.data, ptr(off, ctypes.c_int64))
 
 
 def ptr(a, typ=ctypes.c_int32):

@@ -107,7 +107,7 @@ from ..ops.celt.pvq import renormalise_vector
 from ..ops.celt.torch_plc import LPC_ORDER
 from ..ops.celt.torch_synthesis import (DECODE_BUFFER_SIZE, EB, I32,
                                         NB_EBANDS, OVERLAP, SHORT_MDCT_SIZE)
-from ..host.native import take_strips
+from ..host.native import cut_T, take_strips
 from ..utils import spans
 from ..utils.device import resolve_device
 from . import host_groups as hg
@@ -157,6 +157,9 @@ class _Lane:
 
     N = 960                       # samples a frame at 48 kHz
     kind = ""                     # the stats() frame counter it adds to
+    # a window frame's layout: stream-major, cut by `frames`, or
+    # transposed (streams contiguous), cut by `cut`
+    transposed = False
 
     def __init__(self, pool, group, idxs, width: int, dtype):
         self.pool = pool
@@ -362,6 +365,7 @@ class _CeltLane(_Lane):
     rows, and its noise rows of another channel count, compact."""
 
     kind = "celt"
+    transposed = True
 
     def __init__(self, pool, LM: int, C: int, idxs, ends, start: int = 0,
                  table=None):
@@ -382,6 +386,9 @@ class _CeltLane(_Lane):
                                    device=pool.device),
         }
         self.bucket = ("celtT", LM, self.C, CC, self.n)
+        # the routing buffer: a window frame's rows cut stream-major
+        self.cut_buf = np.empty((self.n * self.N, CC), dtype=np.int16)
+        self.cut_off = np.empty(self.n + 1, dtype=np.int64)
         self.plc = pool.rfc_plc
         if self.plc:
             self.state["plc_pitch"] = torch.zeros(
@@ -487,9 +494,17 @@ class _CeltLane(_Lane):
             CC=self.pool.channels, masked=masked, pitch=st.get("plc_pitch"),
             lpc=st.get("plc_lpc"), conceal=aux)
 
-    def frames(self, frame, sel):
-        """Frame (CC, N, n) -> (len(sel), N, CC)."""
-        return frame[:, :, sel].transpose(2, 1, 0)
+    def cut(self, frame, sel, lo, te):
+        """Rows `sel` of a window frame (CC, N, n): row j's samples [lo[j],
+        N - te[j]) as a (samples, CC) int16 chunk, cut stream-major into
+        the lane's routing buffer in one native pass (host/native/
+        route_entry.cpp, pcm_cut_T), then each copied out, so that no
+        chunk keeps the buffer or the window alive. Returns (chunks,
+        samples)."""
+        off = self.cut_off[:len(sel) + 1]
+        total = cut_T(frame, sel, lo, te, self.cut_buf, off)
+        o, buf = off.tolist(), self.cut_buf
+        return [buf[a:b].copy() for a, b in zip(o, o[1:])], total
 
 
 class _SilkLane(_Lane):
@@ -1199,40 +1214,63 @@ class StreamPool:
         that is not concealed as N samples of silence, N the lane's frame
         size; a scalar row's PCM as its decoder gave it): a `fetch_wait`
         span for the wait for the part's windows, a `route` span for the
-        rest."""
-        rec, sn = self._rec, self._step_no
+        rest. A transposed frame (a CELT lane's) is cut by the lane's
+        native pass, counted in `route.rows_native`; a stream-major one,
+        lost and scalar rows a row at a time, in `route.rows_numpy`;
+        `route.rows_trimmed` counts the rows with a pre-skip or
+        end-trim."""
+        rec, sn, out = self._rec, self._step_no, self.pcm_out
         for p in parts:
             if p["lane"] is None:
                 rs = rec.open("route", sn)
                 for i, pcm, lo, te in p["direct"]:
-                    self.pcm_out[i].append(self._trim(pcm, lo, te))
+                    out[i].append(self._trim(pcm, lo, te))
+                rec.count("route.rows_numpy", len(p["direct"]))
+                rec.count("route.rows_trimmed", sum(
+                    1 for d in p["direct"] if d[2] or d[3]))
                 rec.close(rs)
                 continue
-            lane = p["lane"]
-            if p["sel"].size:
+            lane, sel, lost = p["lane"], p["sel"], p["lost"]
+            if sel.size:
                 fw = rec.open("fetch_wait", sn, lane.index)
                 frames = [win.host()[k] for win, k in p["wins"]]
                 rec.close(fw)
             rs = rec.open("route", sn, lane.index)
             idxs = lane.idxs
-            meta = {int(r): (int(d), int(t)) for r, d, t in
-                    zip(p["rows"], p["disc"], p["trim"])}
-            if p["sel"].size:
-                blks = [lane.frames(f, p["sel"]) for f in frames]
+            # each row's pre-skip and end-trim (p["rows"] is sorted)
+            at = np.searchsorted(p["rows"], sel)
+            lo, te = p["disc"][at], p["trim"][at]
+            if sel.size and lane.transposed:
+                (frame,) = frames
+                chunks, n_out = lane.cut(frame, sel, lo, te)
+                for i, c in zip(idxs[sel].tolist(), chunks):
+                    out[i].append(c)
+                self._stats["samples_out"] += n_out
+                rec.count("route.rows_native", sel.size)
+            elif sel.size:
+                blks = [lane.frames(f, sel) for f in frames]
                 blk = blks[0] if len(blks) == 1 else np.concatenate(blks,
                                                                     axis=1)
-                for pcm, r in zip(blk, p["sel"].tolist()):
-                    self.pcm_out[idxs[r]].append(self._trim(pcm, *meta[r]))
-            for r in p["lost"].tolist():
-                self.pcm_out[idxs[r]].append(self._trim(
-                    np.zeros((lane.N, self.channels), dtype=np.int16),
-                    *meta[r]))
+                for pcm, i, a, t in zip(blk, idxs[sel].tolist(),
+                                        lo.tolist(), te.tolist()):
+                    out[i].append(self._trim(pcm, a, t))
+                rec.count("route.rows_numpy", sel.size)
+            at = np.searchsorted(p["rows"], lost)
+            lo_l, te_l = p["disc"][at], p["trim"][at]
+            for i, a, t in zip(idxs[lost].tolist(), lo_l.tolist(),
+                               te_l.tolist()):
+                out[i].append(self._trim(
+                    np.zeros((lane.N, self.channels), dtype=np.int16), a, t))
+            rec.count("route.rows_numpy", lost.size)
+            rec.count("route.rows_trimmed", int(np.count_nonzero(lo | te))
+                      + int(np.count_nonzero(lo_l | te_l)))
             rec.close(rs)
 
     def _trim(self, pcm, lo: int, te: int):
-        # a copy, so the stream's PCM keeps no window buffer alive
+        # a copy, so the stream's PCM keeps no window buffer, nor the
+        # step's block of rows, alive
         hi = pcm.shape[0] - te
-        out = np.ascontiguousarray(pcm[lo:max(hi, lo)])
+        out = pcm[lo:max(hi, lo)].copy()
         self._stats["samples_out"] += out.shape[0]
         return out
 
